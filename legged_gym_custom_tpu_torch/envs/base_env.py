@@ -1,5 +1,5 @@
 """Vectorized legged-robot environment, torch port of
-legged_gym_custom_tpu/envs/base_env.py (flat-plane path).
+legged_gym_custom_tpu/envs/base_env.py.
 
 The env is an `EnvState` of batch-leading (B, ...) tensors plus a `step`
 that returns a new state; resets are lane-masked `torch.where` rebuilds with
@@ -11,10 +11,12 @@ legged_robot.py:67-100): clip actions -> decimated physics -> derived
 quantities -> feet/phase update -> callback (command resample / heading /
 pushes) -> termination -> rewards -> masked reset -> observations.
 
-Ported so far: the flat plane.  Heightfield terrain, scandot heights, the
-terrain and command curricula, progress-stall termination and stateful
-actuator models come with later slices; a config asking for one of them
-raises NotImplementedError at construction.
+Ported so far: the flat plane, and heightfield terrain (mesh_type
+'heightfield' or 'trimesh') with custom origins, the terrain curriculum,
+scandot heights and the parkour hole termination.  The command curriculum,
+progress-stall termination and stateful actuator models come with later
+slices; a config asking for one of them raises NotImplementedError at
+construction.
 """
 from __future__ import annotations
 
@@ -27,8 +29,10 @@ import torch
 from legged_gym_custom_tpu_torch import physics as phys
 from legged_gym_custom_tpu_torch import resolve_device
 from legged_gym_custom_tpu_torch.ops import fused_step
+from legged_gym_custom_tpu_torch.physics import patch as patch_lib
 from legged_gym_custom_tpu_torch.physics import spatial as sp
 from legged_gym_custom_tpu_torch.physics.engine import DomainRandParams, PhysicsState
+from legged_gym_custom_tpu_torch.terrain import Terrain
 from . import rewards as rew_lib
 from .rewards import RewardCtx, RewardStatics
 
@@ -58,6 +62,9 @@ class EnvState:
     feet_air_time: torch.Tensor           # (B, n_feet)
     last_contacts: torch.Tensor           # (B, n_feet) bool
     last_contact_heights: torch.Tensor    # (B, n_feet)
+    jump_flags: torch.Tensor              # (B,)
+    terrain_levels: torch.Tensor          # (B,) int64
+    terrain_types: torch.Tensor           # (B,) int64
     env_origins: torch.Tensor             # (B, 3)
     episode_sums: torch.Tensor            # (B, n_reward_terms)
     command_ranges: torch.Tensor          # (4, 2) [vx, vy, wz, heading]
@@ -73,25 +80,27 @@ def _where(mask, new, old):
     return torch.where(mask.reshape(mask.shape + (1,) * (old.dim() - 1)), new, old)
 
 
+def terrain_types(num_envs: int, num_cols: int) -> np.ndarray:
+    """Terrain column of each env, (B,) int64: the reference's
+    `arange(B) // (B / num_cols)` (base_env.py:463) in float32, as JAX
+    evaluates it."""
+    q = np.floor_divide(np.arange(num_envs, dtype=np.float32), np.float32(num_envs / num_cols))
+    return q.astype(np.int64)
+
+
 class LeggedEnv:
     """Static env builder; `reset_all` and `step` return new states."""
 
-    def __init__(self, cfg, urdf_path: str, name: str = "robot", device="cuda"):
+    def __init__(self, cfg, urdf_path: str, name: str = "robot", device="cuda",
+                 terrain_seed: int = 0):
         self.device = resolve_device(device)
         self.cfg = cfg
-        if cfg.terrain.mesh_type in ("heightfield", "trimesh"):
-            raise NotImplementedError(
-                f"terrain mesh_type {cfg.terrain.mesh_type!r}: only the flat plane is ported"
-            )
-        if cfg.terrain.measure_heights:
-            raise NotImplementedError("scandot height measurement is not ported yet")
         if cfg.commands.curriculum:
             raise NotImplementedError("the command curriculum is not ported yet")
         if float(getattr(getattr(cfg, "termination", None), "stall_time_s", 0.0) or 0.0) > 0:
             raise NotImplementedError("progress-stall termination is not ported yet")
         if getattr(cfg.control, "use_actuator_network", False):
             raise NotImplementedError("actuator networks are not ported yet")
-        cfg.terrain.curriculum = False  # reference _parse_cfg:950-951
 
         dev = self.device
         f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
@@ -104,7 +113,25 @@ class LeggedEnv:
         self.max_episode_length = int(np.ceil(self.max_episode_length_s / self.dt))
         self.push_interval = int(np.ceil(cfg.domain_rand.push_interval_s / self.dt))
         self.resample_interval = int(cfg.commands.resampling_time / self.dt)
-        self.hf = phys.plane()
+
+        # ---- terrain (reference base_env.py:94-112): the numpy generator
+        # builds the int16 grid on the host; the float32 table and the
+        # (rows, cols, 3) course origins live on the device
+        self.custom_origins = cfg.terrain.mesh_type in ("heightfield", "trimesh")
+        if self.custom_origins:
+            self.terrain = Terrain(cfg.terrain, self.num_envs,
+                                   np.random.default_rng(terrain_seed))
+            self.hf = phys.from_raw(self.terrain.height_field_raw, cfg.terrain.horizontal_scale,
+                                    cfg.terrain.vertical_scale, cfg.terrain.border_size,
+                                    device=dev)
+            self.terrain_origins = f32(self.terrain.env_origins)
+            self.terrain_types = torch.as_tensor(
+                terrain_types(self.num_envs, cfg.terrain.num_cols), device=dev)
+        else:
+            self.terrain = None
+            self.hf = phys.plane()
+            self.terrain_origins = None
+            cfg.terrain.curriculum = False  # reference _parse_cfg:950-951
 
         # ---- PD / actuation ----
         m = self.model
@@ -161,8 +188,12 @@ class LeggedEnv:
             dof_frictionloss=_per_dof(getattr(cfg.sim, "joint_frictionloss", 0.0)),
             frictionloss_implicit=bool(getattr(cfg.sim, "joint_frictionloss_implicit", False)),
         )
-        # the fused kernel's compile-time constants, built once host-side
-        self.fused_spec = fused_step.build_spec(self.ma, self.sim_params, self.pd, self.dof_limits)
+        # the fused kernel's compile-time constants, built once host-side:
+        # K1 on the plane, K3 (with the contact window's size) on a heightfield
+        self.fused_spec = fused_step.build_spec(
+            self.ma, self.sim_params, self.pd, self.dof_limits,
+            hf_K=phys.patch_K(self.hf, self.sim_params),
+            hf_hs=0.0 if self.hf.is_plane else self.hf.horizontal_scale)
 
         # ---- link groups (name-substring matching, legged_robot.py:846-894) ----
         self.feet_ids = m.link_ids_matching(cfg.asset.foot_name)
@@ -174,10 +205,16 @@ class LeggedEnv:
         self.calf_joint_ids = m.dof_ids_matching("calf")
         self.n_feet = len(self.feet_ids)
 
-        # scandot grid size (legged_robot.py:980-994): heights stay zero on
+        # ---- scandot grid (legged_robot.py:980-994); heights stay zero on
         # the plane, but the scan stream keeps its width
-        self.num_height_points = len(cfg.terrain.measured_points_x) * len(
-            cfg.terrain.measured_points_y)
+        gx, gy = np.meshgrid(np.asarray(cfg.terrain.measured_points_x),
+                             np.asarray(cfg.terrain.measured_points_y), indexing="ij")
+        pts = np.stack([gx.ravel(), gy.ravel(), np.zeros(gx.size)], axis=-1)
+        self.height_points = f32(pts)                        # (P, 3)
+        self.num_height_points = pts.shape[0]
+        # scandot window: the grid's worst-case yaw-rotated radius + margin
+        self._scan_patch_K = 0 if self.hf.is_plane else patch_lib.patch_size(
+            float(np.linalg.norm(pts[:, :2], axis=1).max()) + 0.3, cfg.terrain.horizontal_scale)
 
         # ---- rewards (legged_robot.py:730-754) ----
         scales = {}
@@ -230,6 +267,7 @@ class LeggedEnv:
             thigh_joint_ids=self.thigh_joint_ids,
             calf_joint_ids=self.calf_joint_ids,
             heading_command=cfg.commands.heading_command,
+            jump_zone_fwd_gate=getattr(r, "jump_zone_fwd_gate", 0.0),
         )
 
         self.obs_scales = cfg.normalization.obs_scales
@@ -339,16 +377,28 @@ class LeggedEnv:
         return torch.where(small[:, None], 0.0, legs)
 
     def _check_termination(self, state: EnvState, derived):
-        """legged_robot.py:141-154."""
+        """legged_robot.py:141-154, plus the parkour hole check (go2.py:200-204)."""
         f = derived["link_forces"][:, self.termination_ids, :]
         contact_term = torch.any(torch.linalg.norm(f, dim=-1) > 1.0, dim=1)
         time_out = state.episode_length > self.max_episode_length
         upside_down = derived["projected_gravity"][:, 2] > 0.0
-        return contact_term | time_out | upside_down, time_out
+        reset = contact_term | time_out | upside_down
+        if getattr(self.cfg.terrain, "parkour", False):
+            reset = reset | (state.physics.base_pos[:, 2] < -1.0)
+        return reset, time_out
 
-    def _initial_origins(self) -> torch.Tensor:
-        """Plane env origins on a grid (legged_robot.py:897-930)."""
+    def _initial_origins(self, gen):
+        """(terrain levels, terrain types, origins) of every env
+        (legged_robot.py:897-930): on a heightfield each env starts on a
+        random level up to `max_init_terrain_level` of its column's course;
+        on the plane the origins form a grid."""
         B = self.num_envs
+        if self.custom_origins:
+            max_init = self.cfg.terrain.max_init_terrain_level
+            if not self.cfg.terrain.curriculum:
+                max_init = self.cfg.terrain.num_rows - 1
+            levels = torch.randint(0, max_init + 1, (B,), generator=gen, device=self.device)
+            return levels, self.terrain_types, self.terrain_origins[levels, self.terrain_types]
         ncols = int(np.floor(np.sqrt(B)))
         nrows = int(np.ceil(B / ncols))
         xx, yy = np.meshgrid(np.arange(nrows), np.arange(ncols), indexing="ij")
@@ -356,7 +406,8 @@ class LeggedEnv:
         origins = np.zeros((B, 3), np.float32)
         origins[:, 0] = spacing * xx.flatten()[:B]
         origins[:, 1] = spacing * yy.flatten()[:B]
-        return torch.as_tensor(origins, device=self.device)
+        zeros = torch.zeros(B, dtype=torch.long, device=self.device)
+        return zeros, zeros, torch.as_tensor(origins, device=self.device)
 
     # ------------------------------------------------------------------
     # Random draws
@@ -394,8 +445,12 @@ class LeggedEnv:
         B = self.num_envs
         dof_pos = self.default_dof_pos + self._uniform(gen, (B, self.model.num_dof), 0.0, 0.9)
         vel6 = self._uniform(gen, (B, 6), -0.5, 0.5)
+        pos = self.base_init["pos"] + origins
+        if self.custom_origins:
+            xy = self._uniform(gen, (B, 2), -1.0, 1.0)
+            pos = pos + torch.cat([xy, torch.zeros_like(xy[:, :1])], dim=1)
         return PhysicsState(
-            base_pos=self.base_init["pos"] + origins,
+            base_pos=pos,
             base_quat=self.base_init["quat"].expand(B, 4),
             lin_vel=vel6[:, 0:3],
             ang_vel=vel6[:, 3:6],
@@ -439,6 +494,41 @@ class LeggedEnv:
                 new[:, 3] = torch.where(zmask, cur_heading, new[:, 3])
         return new
 
+    def _update_terrain_curriculum(self, state: EnvState, gen, reset_mask):
+        """Promote/demote terrain levels on reset (legged_robot.py:543-574):
+        up after covering `promote_threshold` of a course's length, down
+        after less than `demote_threshold` of the commanded distance; past
+        the last row an env goes to a random level."""
+        if not (self.cfg.terrain.curriculum and self.custom_origins):
+            return state.terrain_levels, state.env_origins
+        cfg = self.cfg.terrain
+        dist = torch.linalg.norm(state.physics.base_pos[:, :2] - state.env_origins[:, :2], dim=1)
+        move_up = dist > self.terrain.env_length * cfg.promote_threshold
+        expected = torch.linalg.norm(state.commands[:, :2], dim=1) * self.max_episode_length_s
+        move_down = dist < expected * cfg.demote_threshold
+        levels = state.terrain_levels + move_up.long() - move_down.long()
+        rand_levels = torch.randint(0, cfg.num_rows, levels.shape, generator=gen,
+                                    device=self.device)
+        levels = torch.where(levels >= cfg.num_rows, rand_levels, torch.clamp(levels, min=0))
+        levels = torch.where(reset_mask, levels, state.terrain_levels)
+        origins = self.terrain_origins[levels, state.terrain_types]
+        return levels, _where(reset_mask, origins, state.env_origins)
+
+    # ------------------------------------------------------------------
+    # Heights (legged_robot.py:997-1032)
+    # ------------------------------------------------------------------
+    def _get_heights(self, ph: PhysicsState) -> torch.Tensor:
+        """Terrain heights at the yaw-rotated scandots, from a per-env
+        window of the table that covers the whole grid (physics/patch.py)."""
+        B = ph.base_pos.shape[0]
+        if self.hf.is_plane:
+            return torch.zeros((B, self.num_height_points), device=self.device)
+        pts = sp.quat_apply_yaw(ph.base_quat[:, None, :], self.height_points[None, :, :]) \
+            + ph.base_pos[:, None, :]
+        lp = patch_lib.extract(self.hf, ph.base_pos[:, 0], ph.base_pos[:, 1],
+                               self._scan_patch_K)
+        return patch_lib.height_min3(lp, pts[..., 0], pts[..., 1])
+
     # ------------------------------------------------------------------
     # Reset-all / step
     # ------------------------------------------------------------------
@@ -447,7 +537,7 @@ class LeggedEnv:
         B = self.num_envs
         cfg = self.cfg
         dev = self.device
-        origins = self._initial_origins()
+        levels, types, origins = self._initial_origins(gen)
         dr = self._sample_dr(gen)
         cr = torch.tensor(
             [cfg.commands.ranges.lin_vel_x, cfg.commands.ranges.lin_vel_y,
@@ -470,6 +560,9 @@ class LeggedEnv:
             feet_air_time=zeros(B, self.n_feet),
             last_contacts=torch.zeros((B, self.n_feet), dtype=torch.bool, device=dev),
             last_contact_heights=zeros(B, self.n_feet),
+            jump_flags=zeros(B),
+            terrain_levels=levels,
+            terrain_types=types,
             env_origins=origins,
             episode_sums=zeros(B, len(self.episode_sum_names)),
             command_ranges=cr,
@@ -528,7 +621,7 @@ class LeggedEnv:
             gain = getattr(cfg.commands, "heading_error_gain", 0.5)
             err = sp.wrap_to_pi(commands[:, 3] - heading) * gain
             commands[:, 2] = torch.clamp(err, -1.0, 1.0)
-        measured_heights = state.measured_heights  # zero on the plane
+        measured_heights = self._get_heights(ph)
         if cfg.domain_rand.push_robots:
             push_vel = self._uniform(gen, (B, 2), -cfg.domain_rand.max_push_vel_xy,
                                      cfg.domain_rand.max_push_vel_xy)
@@ -572,6 +665,7 @@ class LeggedEnv:
             first_contact=first_contact,
             phases=phases,
             measured_heights=measured_heights,
+            jump_flags=state.jump_flags,
             reset_buf=reset_buf,
             time_out_buf=time_out_buf,
         )
@@ -594,7 +688,8 @@ class LeggedEnv:
         feet_air_time = feet_air_time * ~contact_filt
 
         # ---- masked reset (reset_idx, go2.py:207-263) ----
-        reset_physics = self._sample_reset_physics(state_mid, gen, state.env_origins)
+        levels, origins = self._update_terrain_curriculum(state_mid, gen, reset_buf)
+        reset_physics = self._sample_reset_physics(state_mid, gen, origins)
         ph = PhysicsState(*[_where(reset_buf, new, old) for new, old in zip(reset_physics, ph)])
         commands = self._resample_commands(state_mid.replace(physics=ph), gen, reset_buf)
         last_actions = _where(reset_buf, torch.zeros_like(actions), actions)
@@ -626,6 +721,8 @@ class LeggedEnv:
             feet_air_time=feet_air_time,
             last_contacts=last_contacts,
             last_contact_heights=last_contact_heights,
+            terrain_levels=levels,
+            env_origins=origins,
             episode_sums=episode_sums,
         )
         new_state, obs = self._compute_observations(new_state, derived, gen)

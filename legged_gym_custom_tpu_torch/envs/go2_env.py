@@ -2,9 +2,10 @@
 
 Overrides the base observation layout with the Go2's 52-d proprio scheme
 (go2.py:467-574): IMU roll/pitch instead of projected gravity and linear
-velocity, plus trot-gait phase features.  The 5-stream outputs (privileged
-29 / estimated 3 / scan 132 / critic 736) come from the base class.
-Observations are recomputed from the post-reset state, as in the JAX env.
+velocity, plus gait phase features, and the parkour jump flags.  The
+5-stream outputs (privileged 29 / estimated 3 / scan 132 / critic 736) come
+from the base class.  Observations are recomputed from the post-reset
+state, as in the JAX env.
 """
 from __future__ import annotations
 
@@ -18,11 +19,6 @@ from .base_env import EnvState, LeggedEnv
 
 
 class Go2Env(LeggedEnv):
-    def __init__(self, cfg, urdf_path: str, name: str = "robot", device="cuda"):
-        if getattr(cfg.terrain, "parkour", False):
-            raise NotImplementedError("the parkour jump-flag path is not ported yet")
-        super().__init__(cfg, urdf_path, name=name, device=device)
-
     def _noise_scale_vec(self) -> np.ndarray:
         """Go2 noise vector (go2.py:110-129), aligned to the actual layout."""
         cfg = self.cfg
@@ -59,3 +55,11 @@ class Go2Env(LeggedEnv):
             state.actions,
             phase_features,
         ], dim=-1)
+
+    def _pre_obs_hook(self, state: EnvState) -> EnvState:
+        """Jump flags from scandot outliers (go2.py:487-494): 8 or more
+        scandots more than 0.1 m off the ground level."""
+        if not getattr(self.cfg.terrain, "parkour", False):
+            return state
+        num_outliers = torch.sum(torch.abs(state.measured_heights) > 0.1, dim=1)
+        return state.replace(jump_flags=(num_outliers >= 8).float())

@@ -5,10 +5,10 @@ Each term is a batched function of a `RewardCtx` and the task's
 (scale * dt, zero scales dropped) and sums the terms with positive clipping
 and the termination-after-clip rule (reference legged_robot.py:216-237).
 
-Ported so far: the terms the flat `go2` task scales (go2_config.py
-rewards.scales) plus every term the base config switches on, and
-`termination`.  The parkour, jumper, biped and humanoid terms come with
-their tasks.
+Ported so far: the terms the flat `go2` and `go2_parkour` tasks scale
+(go2_config.py, go2_parkour_config.py rewards.scales) plus every term the
+base config switches on, and `termination`.  The progress, biped and
+humanoid terms come with their tasks.
 """
 from __future__ import annotations
 
@@ -44,6 +44,9 @@ class RewardStatics(NamedTuple):
     thigh_joint_ids: np.ndarray
     calf_joint_ids: np.ndarray
     heading_command: bool
+    # gate the jump-zone rewards on actual forward velocity (m/s; 0 = off,
+    # the reference behavior; see the JAX RewardStatics)
+    jump_zone_fwd_gate: float = 0.0
 
 
 class RewardCtx(NamedTuple):
@@ -75,6 +78,7 @@ class RewardCtx(NamedTuple):
     first_contact: torch.Tensor     # (B, n_feet) bool
     phases: torch.Tensor            # (B,4) per-leg [fl, fr, bl, br]
     measured_heights: torch.Tensor  # (B,P)
+    jump_flags: torch.Tensor        # (B,)
     reset_buf: torch.Tensor         # (B,) bool
     time_out_buf: torch.Tensor      # (B,) bool
 
@@ -139,9 +143,28 @@ def _reward_dof_error(ctx, s):
     return _sq_sum(ctx.dof_pos - s.default_dof_pos)
 
 
-def _reward_hip_pos(ctx, s):
-    ids = torch.as_tensor(s.hip_joint_ids, device=ctx.dof_pos.device)
+def _reward_zero_cmd_dof_error(ctx, s):
+    zero = (torch.linalg.norm(ctx.commands[:, :3], dim=1) < 0.2).float()
+    return _reward_dof_error(ctx, s) * zero
+
+
+def _joint_sq_err(ctx, s, joint_ids):
+    ids = torch.as_tensor(joint_ids, device=ctx.dof_pos.device)
     return _sq_sum(ctx.dof_pos[:, ids] - s.default_dof_pos[ids])
+
+
+def _reward_hip_pos(ctx, s):
+    return _joint_sq_err(ctx, s, s.hip_joint_ids)
+
+
+def _reward_thigh_pos(ctx, s):
+    return _joint_sq_err(ctx, s, s.thigh_joint_ids)
+
+
+def _reward_stumble_feet(ctx, s):
+    f = ctx.link_forces[:, s.feet_ids, :]
+    return torch.any(torch.linalg.norm(f[:, :, :2], dim=2) > 5 * torch.abs(f[:, :, 2]),
+                     dim=1).float()
 
 
 def _stance_flags(ctx, s):
@@ -162,6 +185,58 @@ def _reward_phase_foot_lifting(ctx, s):
     return torch.sum(rew, dim=1) / 2.0
 
 
+def _left_right_asymmetry(ctx, joint_ids):
+    """Sum |q_left - q_right| over the front and rear leg pairs (legs in
+    FL, FR, RL, RR order)."""
+    ids = np.asarray(joint_ids)
+    left = ctx.dof_pos[:, torch.as_tensor(ids[[0, 2]], device=ctx.dof_pos.device)]
+    right = ctx.dof_pos[:, torch.as_tensor(ids[[1, 3]], device=ctx.dof_pos.device)]
+    return torch.sum(torch.abs(left - right), dim=1)
+
+
+def _reward_thigh_symmetry(ctx, s):
+    return _left_right_asymmetry(ctx, s.thigh_joint_ids)
+
+
+def _reward_calf_symmetry(ctx, s):
+    return _left_right_asymmetry(ctx, s.calf_joint_ids)
+
+
+def _wrap_to_pi(x):
+    return torch.remainder(x + math.pi, 2 * math.pi) - math.pi
+
+
+def _reward_heading_alignment(ctx, s):
+    desired = (_wrap_to_pi(ctx.commands[:, 3]) if s.heading_command
+               else torch.zeros_like(ctx.heading))
+    err = _wrap_to_pi(desired - ctx.heading)
+    moving = (torch.linalg.norm(ctx.commands[:, :3], dim=1) >= 0.2).float()
+    return torch.square(err) * moving
+
+
+def _reward_reverse_penalty(ctx, s):
+    return -torch.clamp(ctx.world_lin_vel[:, 0], max=0.0)
+
+
+def _jump_motion_gate(ctx, s):
+    """The command mask (reference go2.py:778,791), and optionally the
+    actual forward velocity above `jump_zone_fwd_gate`."""
+    moving = (torch.linalg.norm(ctx.commands[:, :3], dim=1) >= 0.2).float()
+    if s.jump_zone_fwd_gate > 0.0:
+        moving = moving * (ctx.world_lin_vel[:, 0] > s.jump_zone_fwd_gate).float()
+    return moving
+
+
+def _reward_jump_zone_forward_vel(ctx, s):
+    fwd = torch.clamp(ctx.world_lin_vel[:, 0], min=0.0)
+    return fwd * (ctx.jump_flags > 0.0).float() * _jump_motion_gate(ctx, s)
+
+
+def _reward_jump_zone_upward_vel(ctx, s):
+    up = torch.clamp(ctx.world_lin_vel[:, 2], min=0.0)
+    return up * (ctx.jump_flags > 0.0).float() * _jump_motion_gate(ctx, s)
+
+
 REWARD_REGISTRY: Dict[str, Callable] = {
     "lin_vel_z": _reward_lin_vel_z,
     "ang_vel_xy": _reward_ang_vel_xy,
@@ -176,7 +251,16 @@ REWARD_REGISTRY: Dict[str, Callable] = {
     "tracking_ang_vel": _reward_tracking_ang_vel,
     "delta_torques": _reward_delta_torques,
     "dof_error": _reward_dof_error,
+    "zero_cmd_dof_error": _reward_zero_cmd_dof_error,
     "hip_pos": _reward_hip_pos,
+    "thigh_pos": _reward_thigh_pos,
+    "stumble_feet": _reward_stumble_feet,
     "phase_contact_match": _reward_phase_contact_match,
     "phase_foot_lifting": _reward_phase_foot_lifting,
+    "thigh_symmetry": _reward_thigh_symmetry,
+    "calf_symmetry": _reward_calf_symmetry,
+    "heading_alignment": _reward_heading_alignment,
+    "reverse_penalty": _reward_reverse_penalty,
+    "jump_zone_forward_vel": _reward_jump_zone_forward_vel,
+    "jump_zone_upward_vel": _reward_jump_zone_upward_vel,
 }

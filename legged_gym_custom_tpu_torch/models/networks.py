@@ -14,7 +14,9 @@ The Gaussian policy std is a free (num_actions,) parameter of
 `ActorCriticNetworks`.  Weights start as the JAX package's `_safe_lecun_normal`
 (truncated-normal lecun, zeros for a zero fan-in), biases at zero.
 `params_from_flax` carries a JAX parameter tree (as numpy arrays) into a
-`state_dict` of these modules.
+`state_dict` of these modules; `params_from_bundle` does the same for the
+inference modules of an exported policy bundle (the `.npz` layout of
+legged_gym_custom_tpu/deploy/export.py:4-11).
 """
 from __future__ import annotations
 
@@ -204,5 +206,41 @@ def params_from_flax(np_params) -> dict:
     sd["adapt_encoder.out.weight"] = np.asarray(ad["Dense_1"]["kernel"]).T
     sd["adapt_encoder.out.bias"] = np.asarray(ad["Dense_1"]["bias"])
     sd["std"] = np.asarray(np_params["std"])
+    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in sd.items()}
+
+
+def params_from_bundle(path) -> dict:
+    """An exported policy bundle (`policy_bundle.npz`) -> a partial
+    `state_dict` for `ActorCriticNetworks`, loaded with strict=False.
+
+    The bundle holds the four inference modules, each layer as
+    `<module>/<i>/kernel|convkernel` and `.../bias` in the order the export
+    sorts the flax layers (`Conv_*` before `Dense_*`, by index), plus `std`;
+    the critic and the privileged encoder are not in it.
+    """
+    data = np.load(path)
+    layers = {}
+    for key in data.files:
+        if key.startswith("meta/") or key == "std":
+            continue
+        mod, idx, kind = key.split("/")
+        layers.setdefault(mod, {}).setdefault(int(idx), {})[kind] = np.asarray(data[key])
+    sd = {}
+    for mod, prefix in (("policy", "actor"), ("estimator", "estimator.mlp"),
+                        ("scan_encoder", "scan_encoder")):
+        for i, idx in enumerate(sorted(layers[mod])):
+            sd[f"{prefix}.layers.{i}.weight"] = layers[mod][idx]["kernel"].T
+            sd[f"{prefix}.layers.{i}.bias"] = layers[mod][idx]["bias"]
+    ad = [layers["adaptation_module"][i] for i in sorted(layers["adaptation_module"])]
+    convs = [l for l in ad if "convkernel" in l]
+    dense = [l for l in ad if "kernel" in l]
+    for i, conv in enumerate(convs):
+        sd[f"adapt_encoder.convs.{i}.weight"] = np.transpose(conv["convkernel"], (2, 1, 0))
+        sd[f"adapt_encoder.convs.{i}.bias"] = conv["bias"]
+    for name, layer in zip(("proj", "out"), dense):
+        sd[f"adapt_encoder.{name}.weight"] = layer["kernel"].T
+        sd[f"adapt_encoder.{name}.bias"] = layer["bias"]
+    sd["std"] = np.asarray(data["std"])
     return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
             for k, v in sd.items()}

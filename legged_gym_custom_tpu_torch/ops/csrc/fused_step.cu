@@ -1,9 +1,13 @@
-// Fused flat-plane control step for Hopper (sm_90a): K1 of the port.
+// Fused control step for Hopper (sm_90a): K1 and K3 of the port.
 //
 // Replaces the Pallas TPU kernel legged_gym_custom_tpu/ops/fused_step.py::
 // _build_fused (pallas_call :824; body control_step_components :667 ->
-// _substep_components :398), plane variant: control type 'P', tanh
-// frictionloss, joint damping and armature.
+// _substep_components :398) with control type 'P', tanh frictionloss, joint
+// damping and armature, in two variants chosen at build time by LGC_HF_K:
+//   K1 (LGC_HF_K == 0): penalty contact against the z = 0 plane;
+//   K3 (LGC_HF_K > 0):  penalty contact against a bilinear surface read from
+//       each env's (K, K) window of the height table (reference
+//       _tile_surface :352-395, contact :479-491).
 //
 // One thread per env runs a whole 50 Hz control step: decimation ticks of
 // clipped PD torques, each followed by `substeps` semi-implicit Euler
@@ -21,6 +25,16 @@
 // model constants fold at compile time.  The 13 articulated inertias (6x6)
 // exceed the register file and spill to local memory; a warp-per-env layout
 // with shared-memory IA is the next step.
+//
+// K3: the TPU kernel keeps each env's window in VMEM and samples it by a
+// one-hot K-row contraction, because a TPU has no lane-parallel gather.  Here
+// a sample is four direct reads of the window: the window is batch-leading
+// (B, K, K), so an env's 2304 B (K = 24) are contiguous, and the clamp of the
+// grid coordinate to K - 1.001 keeps the x0 + 1 / y0 + 1 taps inside it.  The
+// surface under every sphere is sampled at the first substep of each
+// decimation tick and held in registers through the tick's substeps
+// (terrain_tick_sample).  Per env K3 moves K1's 184 floats plus K*K + 2; its
+// bound stays set by operations, the terrain adding about 1 % to K1's count.
 //
 // The robot and sim constants come from a generated header (ops/fused_step.py
 // ::spec_header, passed with -include); every loop over bodies, geoms and dofs
@@ -221,6 +235,40 @@ __device__ __forceinline__ void solve66(const float* A, const float* b, float* x
   mv3(A11i, r, x);
 }
 
+#if LGC_HF_K
+// ---------------------------------------------------------------------------
+// Bilinear height and unit normal from one env's (K, K) window (reference
+// _tile_surface): grid coordinates clamped to [0, K - 1.001], floor and
+// fractions, then the four taps the reference's one-hot contraction weights.
+// out = (h, nx, ny, nz).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void tile_surface(const float* __restrict__ P, float xoff, float yoff,
+                                             float cx, float cy, float* out) {
+  constexpr int K = LGC_HF_K;
+  constexpr float inv_hs = LGC_HF_INV_HS;
+  const float gx = fminf(fmaxf((cx - xoff) * inv_hs, 0.f), LGC_HF_GMAX);
+  const float gy = fminf(fmaxf((cy - yoff) * inv_hs, 0.f), LGC_HF_GMAX);
+  const float x0f = floorf(gx), y0f = floorf(gy);
+  const float fx = gx - x0f, fy = gy - y0f;
+  // the index clamp only acts on a NaN coordinate
+  const int x0 = min(max(static_cast<int>(x0f), 0), K - 2);
+  const int y0 = min(max(static_cast<int>(y0f), 0), K - 2);
+  const float* r0 = P + x0 * K + y0;
+  const float p00 = r0[0], p01 = r0[1], p10 = r0[K], p11 = r0[K + 1];
+  const float u0 = (1.f - fx) * p00 + fx * p10;  // sum_i Wx[i] P[i, y0]
+  const float u1 = (1.f - fx) * p01 + fx * p11;  // sum_i Wx[i] P[i, y0 + 1]
+  const float h = (1.f - fy) * u0 + fy * u1;
+  const float dhdx = ((1.f - fy) * (p10 - p00) + fy * (p11 - p01)) * inv_hs;
+  const float dhdy = (u1 - u0) * inv_hs;
+  const float inv_norm = 1.0f / sqrtf(dhdx * dhdx + dhdy * dhdy + 1.0f);
+  out[0] = h;
+  out[1] = -dhdx * inv_norm;
+  out[2] = -dhdy * inv_norm;
+  out[3] = inv_norm;
+}
+#endif
+
 // ---------------------------------------------------------------------------
 // Per-body spatial inertia about the body origin; body 0 carries the per-env
 // added mass and com offset, the others are compile-time constants.
@@ -254,12 +302,16 @@ __device__ __forceinline__ void body_inertia(int i, float m0, const float* h0, c
 }
 
 // ---------------------------------------------------------------------------
-// One semi-implicit Euler substep (reference _substep_components, plane case)
+// One semi-implicit Euler substep (reference _substep_components).  K3 reads
+// the tick's frozen surface from `surf` (4 floats per geom) and, when
+// `sample_now` (the tick's first substep), samples it there first.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, float* ang, float* q,
                                         float* qd, const float* tau, float mu, float m0,
-                                        const float* h0, const float* I0, float* lf_sum) {
+                                        const float* h0, const float* I0, float* lf_sum,
+                                        const float* __restrict__ patch, float xoff, float yoff,
+                                        float* surf, bool sample_now) {
   LGC_SPEC_CONSTANTS
   constexpr float dt = LGC_DT_SUB;
 
@@ -304,7 +356,7 @@ __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, flo
     for (int k = 0; k < 3; ++k) v[i][k] += a[k] * qd[i - 1];
   }
 
-  // ---- plane penalty contact
+  // ---- penalty contact (plane, or the tick's heightfield surface)
   float wrench[NB][6];
 #pragma unroll
   for (int i = 0; i < NB; ++i)
@@ -322,6 +374,23 @@ __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, flo
     vel_b[1] = v[b][4] + wxg[1];
     vel_b[2] = v[b][5] + wxg[2];
     mtv3(E0[b], vel_b, vel_w);
+#if LGC_HF_K
+    float* sg = &surf[4 * g];
+    if (sample_now) tile_surface(patch, xoff, yoff, pos[0] + p0[b][0] + off[0],
+                                 pos[1] + p0[b][1] + off[1], sg);
+    const float h = sg[0], nx = sg[1], ny = sg[2], nz = sg[3];
+    const float depth = GRAD[g] - nz * (cz - h);
+    const float vn = vel_w[0] * nx + vel_w[1] * ny + vel_w[2] * nz;
+    const float vt[3] = {vel_w[0] - vn * nx, vel_w[1] - vn * ny, vel_w[2] - vn * nz};
+    float fn = fmaxf(LGC_STIFFNESS * depth - LGC_DAMPING * vn, 0.f);
+    fn = depth > 0.f ? fn : 0.f;
+    const float vt_norm = sqrtf(vt[0] * vt[0] + vt[1] * vt[1] + vt[2] * vt[2]);
+    const float ft_mag = fminf(LGC_FRICTION_VEL * vt_norm, mu * fn);
+    const float inv_vt = ft_mag / (vt_norm + 1e-6f);
+    const float force[3] = {fn * nx - vt[0] * inv_vt, fn * ny - vt[1] * inv_vt,
+                            fn * nz - vt[2] * inv_vt};
+#else
+    (void)patch; (void)xoff; (void)yoff; (void)surf; (void)sample_now;
     const float depth = GRAD[g] - cz;
     const float vn = vel_w[2];
     float fn = fmaxf(LGC_STIFFNESS * depth - LGC_DAMPING * vn, 0.f);
@@ -330,6 +399,7 @@ __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, flo
     const float ft_mag = fminf(LGC_FRICTION_VEL * vt_norm, mu * fn);
     const float inv_vt = ft_mag / (vt_norm + 1e-6f);
     const float force[3] = {-vel_w[0] * inv_vt, -vel_w[1] * inv_vt, fn};
+#endif
     float torque[3];
     cross3(off, force, torque);
 #pragma unroll
@@ -533,7 +603,8 @@ __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, flo
 }
 
 // ---------------------------------------------------------------------------
-// The kernel: one thread per env, (C, B) fp32 rows in and out
+// The kernel: one thread per env, (C, B) fp32 rows in and out; for K3 also
+// each env's (K, K) window (batch-leading) and its offsets xoff, yoff (B,)
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(BLOCK)
@@ -543,7 +614,8 @@ fused_control_step_kernel(const float* __restrict__ pos_in, const float* __restr
                           const float* __restrict__ act_in, const float* __restrict__ fric_in,
                           const float* __restrict__ am_in, const float* __restrict__ co_in,
                           const float* __restrict__ kp_in, const float* __restrict__ kd_in,
-                          float* __restrict__ pos_out, float* __restrict__ quat_out,
+                          const float* __restrict__ patch_in, const float* __restrict__ xoff_in,
+                          const float* __restrict__ yoff_in, float* __restrict__ pos_out, float* __restrict__ quat_out,
                           float* __restrict__ lin_out, float* __restrict__ ang_out,
                           float* __restrict__ q_out, float* __restrict__ qd_out,
                           float* __restrict__ lf_out, float* __restrict__ tau_out, int B) {
@@ -591,6 +663,17 @@ fused_control_step_kernel(const float* __restrict__ pos_in, const float* __restr
       }
   }
 
+#if LGC_HF_K
+  const float* patch = patch_in + static_cast<size_t>(n) * (LGC_HF_K * LGC_HF_K);
+  const float xoff = xoff_in[n], yoff = yoff_in[n];
+  float surf[4 * NG];  // the tick's frozen (h, nx, ny, nz) per geom
+#else
+  const float* patch = nullptr;
+  const float xoff = 0.f, yoff = 0.f;
+  float* surf = nullptr;
+  (void)patch_in; (void)xoff_in; (void)yoff_in;
+#endif
+
   float tau[NDOF], lf_sum[3 * NL];
 #pragma unroll 1
   for (int tick = 0; tick < LGC_DECIMATION; ++tick) {
@@ -603,7 +686,8 @@ fused_control_step_kernel(const float* __restrict__ pos_in, const float* __restr
     for (int k = 0; k < 3 * NL; ++k) lf_sum[k] = 0.f;
 #pragma unroll 1
     for (int s = 0; s < LGC_SUBSTEPS; ++s) {
-      substep(pos, quat, lin, ang, q, qd, tau, mu, m0, h0, I0, lf_sum);
+      substep(pos, quat, lin, ang, q, qd, tau, mu, m0, h0, I0, lf_sum, patch, xoff, yoff, surf,
+              s == 0);
     }
   }
 
@@ -631,14 +715,18 @@ extern "C" int lgc_fused_control_step(const float* pos, const float* quat, const
                                       const float* ang, const float* q, const float* qd,
                                       const float* act, const float* fric, const float* am,
                                       const float* co, const float* kp, const float* kd,
+                                      const float* patch, const float* xoff, const float* yoff,
                                       float* opos, float* oquat, float* olin, float* oang,
                                       float* oq, float* oqd, float* olf, float* otau, int B,
                                       void* stream) {
   if (B <= 0) return 0;
+#if LGC_HF_K
+  if (patch == nullptr || xoff == nullptr || yoff == nullptr) return cudaErrorInvalidValue;
+#endif
   const int grid = (B + BLOCK - 1) / BLOCK;
   fused_control_step_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      pos, quat, lin, ang, q, qd, act, fric, am, co, kp, kd, opos, oquat, olin, oang, oq, oqd,
-      olf, otau, B);
+      pos, quat, lin, ang, q, qd, act, fric, am, co, kp, kd, patch, xoff, yoff, opos, oquat, olin,
+      oang, oq, oqd, olf, otau, B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,15 +1,21 @@
-"""The fused flat-plane control step: a hand-written CUDA kernel for Hopper
+"""The fused control step: a hand-written CUDA kernel for Hopper
 (ops/csrc/fused_step.cu) and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel `legged_gym_custom_tpu/ops/fused_step.py::
-_build_fused` (pallas_call at :824, body `control_step_components` :667),
-plane variant (K1): control type 'P', tanh frictionloss, joint damping and
-armature.  One launch runs a whole 50 Hz control step, decimation x substeps
-of PD torques, forward kinematics, plane penalty contact, joint-limit and
-passive torques, ABA with armature and semi-implicit Euler, one thread per
-env with the state held on chip across all substeps.  Device memory traffic
-is the state, actions and DR parameters in and the state, link forces and
-torques out.
+_build_fused` (pallas_call at :824, body `control_step_components` :667) in
+two of its variants, control type 'P' with tanh frictionloss, joint damping
+and armature:
+  * K1, the plane variant (`hf_K == 0`): penalty contact against z = 0;
+  * K3, the heightfield variant (`hf_K > 0`): contact against a per-env
+    bilinear surface read from a (K, K) window of the height table
+    (physics/patch.py), sampled at the first substep of each decimation
+    tick and held through its substeps (reference `_tile_surface` :352).
+One launch runs a whole 50 Hz control step, decimation x substeps of PD
+torques, forward kinematics, penalty contact, joint-limit and passive
+torques, ABA with armature and semi-implicit Euler, one thread per env with
+the state held on chip across all substeps.  Device memory traffic is the
+state, actions and DR parameters (and for K3 each env's window and its
+offsets) in and the state, link forces and torques out.
 
 The model constants are baked into the kernel at build time from a
 `FusedSpec` (built host-side in numpy, as the reference's fix 841adc9
@@ -20,7 +26,7 @@ plain C interface, loaded with ctypes and cached per spec.
 `fused_control_step` is the wrapper: for CPU tensors it runs
 `control_step_components`, the plain version, and for CUDA tensors it
 launches the kernel or raises.  A configuration the kernel does not cover
-('V'/'T' control, implicit stiction, heightfield terrain) raises
+('V'/'T' control and implicit stiction, the K2 options) raises
 NotImplementedError naming the missing variant on either device.
 """
 from __future__ import annotations
@@ -108,20 +114,29 @@ def _t(x):
     return tuple(_t(r) for r in a)
 
 
-def build_spec(ma, params, pd, dof_limits) -> FusedSpec:
+def build_spec(ma, params, pd, dof_limits, hf_K: int = 0, hf_hs: float = 0.0) -> FusedSpec:
     """Concretize ModelArrays/SimParams/PDParams into a hashable spec (host
-    numpy only; `ma` leaves may be tensors on any device)."""
+    numpy only; `ma` leaves may be tensors on any device).  `hf_K` is the
+    side of the per-env terrain window (0 on the plane), `hf_hs` its cell
+    size in meters."""
     c = params.contact
     ndof = len(ma.parent) - 1
     if params.frictionloss_implicit:
         raise NotImplementedError(
             "implicit stiction (K2 option of the fused kernel) is not ported yet"
         )
+    if hf_K and not params.terrain_tick_sample:
+        raise NotImplementedError(
+            "terrain_tick_sample=False: the heightfield kernel (K3) samples the surface once "
+            "per decimation tick and has no per-substep variant"
+        )
 
     def per_dof(x):
         return _t(x) if x is not None else (0.0,) * ndof
 
     return FusedSpec(
+        hf_K=int(hf_K),
+        hf_hs=float(hf_hs),
         parent=tuple(int(p) for p in ma.parent),
         joint_rot=_t(ma.joint_rot),
         joint_pos=_t(ma.joint_pos),
@@ -162,16 +177,19 @@ def build_spec(ma, params, pd, dof_limits) -> FusedSpec:
 
 
 def check_covered(spec: FusedSpec):
-    """Raise NotImplementedError for a spec outside the plane kernel (K1)."""
-    if spec.hf_K:
-        raise NotImplementedError("heightfield variant of the fused kernel (K3) is not ported yet")
+    """Raise NotImplementedError for a spec outside the ported variants: K1
+    on the plane and K3 on a heightfield, both with 'P' control."""
+    where = " on a heightfield" if spec.hf_K else ""
     if spec.control_type != "P":
         raise NotImplementedError(
-            f"control_type {spec.control_type!r}: the fused kernel ports 'P' only "
+            f"control_type {spec.control_type!r}{where}: the fused kernel ports 'P' only "
             "('T' is the K2 option, not ported yet)"
         )
     if spec.fl_dqd:
-        raise NotImplementedError("implicit stiction (K2 option) is not ported yet")
+        raise NotImplementedError(f"implicit stiction{where} (K2 option) is not ported yet")
+    if spec.hf_K and (spec.hf_K < 2 or spec.hf_hs <= 0.0):
+        raise ValueError(f"heightfield spec needs hf_K >= 2 and hf_hs > 0, got "
+                         f"{spec.hf_K}, {spec.hf_hs}")
 
 
 # --------------------------------------------------------------------------
@@ -355,9 +373,46 @@ def _xform_to_mat66(E, p):
     return out
 
 
-def _substep_components(spec: FusedSpec, st, tau, friction, inertias):
-    """One semi-implicit Euler substep on component lists (plane contact).
-    Returns (st', link_force [n_links][3])."""
+def _tile_surface(spec: FusedSpec, terrain, cx, cy):
+    """Bilinear height and unit normal from each env's (K, K) window
+    (reference `_tile_surface` :352-395): the same clamp to K - 1.001, floor
+    and fractions, with four direct reads of the window in place of the
+    one-hot K-row contraction; the taps and their weights are those of the
+    contraction, so h, dh/dx and dh/dy are the same.  cx/cy are (B,) world
+    coordinates; terrain holds `patch` (B, K, K) and `xoff`/`yoff` (B,),
+    the world coordinates of window cell (0, 0).  Returns (h, nx, ny, nz)."""
+    K = spec.hf_K
+    inv_hs = 1.0 / spec.hf_hs
+    patch = terrain["patch"]
+    gx = torch.clamp((cx - terrain["xoff"]) * inv_hs, 0.0, K - 1.001)
+    gy = torch.clamp((cy - terrain["yoff"]) * inv_hs, 0.0, K - 1.001)
+    x0 = torch.floor(gx)
+    fx = gx - x0
+    y0 = torch.floor(gy)
+    fy = gy - y0
+    # the index clamp only acts on a NaN coordinate
+    i = (torch.clamp(x0.long(), 0, K - 2) * K + torch.clamp(y0.long(), 0, K - 2))[:, None]
+    flat = patch.reshape(patch.shape[0], K * K)
+    p00 = torch.gather(flat, 1, i)[:, 0]
+    p01 = torch.gather(flat, 1, i + 1)[:, 0]
+    p10 = torch.gather(flat, 1, i + K)[:, 0]
+    p11 = torch.gather(flat, 1, i + K + 1)[:, 0]
+    u0 = (1.0 - fx) * p00 + fx * p10      # u[y0]  = sum_i Wx[i] P[i, y0]
+    u1 = (1.0 - fx) * p01 + fx * p11      # u[y0 + 1]
+    h = (1.0 - fy) * u0 + fy * u1
+    dhdx = ((1.0 - fy) * (p10 - p00) + fy * (p11 - p01)) * inv_hs
+    dhdy = (u1 - u0) * inv_hs
+    inv_norm = 1.0 / torch.sqrt(dhdx * dhdx + dhdy * dhdy + 1.0)
+    return h, -dhdx * inv_norm, -dhdy * inv_norm, inv_norm
+
+
+def _substep_components(spec: FusedSpec, st, tau, friction, inertias, terrain=None,
+                        surface=None):
+    """One semi-implicit Euler substep on component lists: plane contact, or
+    on a heightfield (spec.hf_K > 0) contact against `surface`, the per-geom
+    (h, nx, ny, nz) list frozen for the current decimation tick; None means
+    "sample now from this substep's kinematics" (terrain_tick_sample).
+    Returns (st', link_force [n_links][3], surface)."""
     nb = len(spec.parent)
     ndof = nb - 1
     dt = spec.dt / spec.substeps
@@ -396,11 +451,15 @@ def _substep_components(spec: FusedSpec, st, tau, friction, inertias):
         qd = st["qd"][i - 1]
         v[i] = [_add(vi[k], _mul(axis[k], qd)) for k in range(3)] + vi[3:6]
 
-    # plane penalty contact
+    # penalty contact: the plane, or the tick's frozen heightfield surface
+    ng = len(spec.geom_body)
     body_wrench = [[0.0] * 6 for _ in range(nb)]   # world axes, body origin
     link_force = [[0.0] * 3 for _ in range(spec.n_links)]
+    sample_now = spec.hf_K > 0 and surface is None
+    if sample_now:
+        surface = [None] * ng
     mu = 0.5 * (friction + spec.terrain_friction)
-    for g in range(len(spec.geom_body)):
+    for g in range(ng):
         b = spec.geom_body[g]
         gpos = list(spec.geom_pos[g])
         Rg = E0[b]
@@ -408,14 +467,29 @@ def _substep_components(spec: FusedSpec, st, tau, friction, inertias):
         center = [_add(_add(st["pos"][k], p0[b][k]), off[k]) for k in range(3)]
         vel_b = _vadd(v[b][3:6], _cross(v[b][0:3], gpos))
         vel_w = _mtv(Rg, vel_b)
-        depth = spec.geom_radius[g] - center[2]
-        vn = vel_w[2]
-        fn = torch.clamp(spec.stiffness * depth - spec.damping * vn, min=0.0)
-        fn = torch.where(depth > 0.0, fn, torch.zeros_like(fn))
-        vt_norm = torch.sqrt(vel_w[0] * vel_w[0] + vel_w[1] * vel_w[1])
-        ft_mag = torch.minimum(spec.friction_vel * vt_norm, mu * fn)
-        inv_vt = ft_mag / (vt_norm + 1e-6)
-        force = [-vel_w[0] * inv_vt, -vel_w[1] * inv_vt, fn]
+        if spec.hf_K > 0:
+            if sample_now:
+                surface[g] = _tile_surface(spec, terrain, center[0], center[1])
+            h, nx, ny, nz = surface[g]
+            depth = spec.geom_radius[g] - nz * (center[2] - h)
+            vn = vel_w[0] * nx + vel_w[1] * ny + vel_w[2] * nz
+            vt = [vel_w[0] - vn * nx, vel_w[1] - vn * ny, vel_w[2] - vn * nz]
+            vt_norm = torch.sqrt(vt[0] * vt[0] + vt[1] * vt[1] + vt[2] * vt[2])
+            fn = torch.clamp(spec.stiffness * depth - spec.damping * vn, min=0.0)
+            fn = torch.where(depth > 0.0, fn, torch.zeros_like(fn))
+            ft_mag = torch.minimum(spec.friction_vel * vt_norm, mu * fn)
+            inv_vt = ft_mag / (vt_norm + 1e-6)
+            force = [fn * nx - vt[0] * inv_vt, fn * ny - vt[1] * inv_vt,
+                     fn * nz - vt[2] * inv_vt]
+        else:
+            depth = spec.geom_radius[g] - center[2]
+            vn = vel_w[2]
+            fn = torch.clamp(spec.stiffness * depth - spec.damping * vn, min=0.0)
+            fn = torch.where(depth > 0.0, fn, torch.zeros_like(fn))
+            vt_norm = torch.sqrt(vel_w[0] * vel_w[0] + vel_w[1] * vel_w[1])
+            ft_mag = torch.minimum(spec.friction_vel * vt_norm, mu * fn)
+            inv_vt = ft_mag / (vt_norm + 1e-6)
+            force = [-vel_w[0] * inv_vt, -vel_w[1] * inv_vt, fn]
         torque = _cross(off, force)
         for k in range(3):
             body_wrench[b][k] = _add(body_wrench[b][k], torque[k])
@@ -531,7 +605,7 @@ def _substep_components(spec: FusedSpec, st, tau, friction, inertias):
         q_new.append(st["q"][j] + qd * dt)
 
     st2 = dict(pos=pos, quat=quat, lin=lin, ang=ang, q=q_new, qd=qd_new)
-    return st2, link_force
+    return st2, link_force, surface
 
 
 def _body_inertias_components(spec: FusedSpec, added_mass, com_offset):
@@ -554,11 +628,13 @@ def _body_inertias_components(spec: FusedSpec, added_mass, com_offset):
 
 
 def control_step_components(spec: FusedSpec, st, actions, friction, added_mass, com_offset,
-                            kp_mult, kd_mult):
+                            kp_mult, kd_mult, terrain=None):
     """The full control step on component lists of (B,) tensors: the plain
-    version of the kernel (reference fused_step.py:667, plane case).
+    version of the kernel (reference fused_step.py:667).
 
     st: dict with pos[3], quat[4], lin[3], ang[3] (world), q[ndof], qd[ndof].
+    terrain (spec.hf_K > 0): dict with `patch` (B, K, K) and `xoff`, `yoff`
+    (B,), the world coordinates of window cell (0, 0).
     Returns (st', link_force_mean [nl][3] of the last tick, tau [ndof]).
     """
     check_covered(spec)
@@ -576,25 +652,31 @@ def control_step_components(spec: FusedSpec, st, actions, friction, added_mass, 
                 - kd * st["qd"][j]
             tau.append(torch.clamp(t, -spec.torque_limits[j], spec.torque_limits[j]))
         lf_sum = [[0.0] * 3 for _ in range(nl)]
+        surface = None  # sampled at the tick's first substep (terrain_tick_sample)
         for _s in range(spec.substeps):
-            st, lf = _substep_components(spec, st, tau, friction, inertias)
+            st, lf, surface = _substep_components(spec, st, tau, friction, inertias, terrain,
+                                                  surface)
             lf_sum = [[_add(lf_sum[l][k], lf[l][k]) for k in range(3)] for l in range(nl)]
         inv_ns = 1.0 / spec.substeps
         lf_mean = [[_mul(lf_sum[l][k], inv_ns) for k in range(3)] for l in range(nl)]
     return st, lf_mean, tau
 
 
-def plain_control_step(spec: FusedSpec, state, actions, dr):
+def plain_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
     """`control_step_components` on (C, B) tensors, returning the wrapper's
     output layout: ((pos, quat, lin, ang, q, qd), link_forces (nl, 3, B),
-    torques (ndof, B))."""
+    torques (ndof, B)).  terrain: (patch (B, K, K), xoff (B,), yoff (B,))
+    for a heightfield spec, else None."""
     pos, quat, lin, ang, q, qd = state
     friction, added_mass, com_offset, kp_mult, kd_mult = dr
     st = dict(pos=list(pos), quat=list(quat), lin=list(lin), ang=list(ang),
               q=list(q), qd=list(qd))
+    tr = None
+    if terrain is not None:
+        tr = dict(zip(("patch", "xoff", "yoff"), terrain))
     st, lf, tau = control_step_components(
         spec, st, list(actions), friction, added_mass, list(com_offset),
-        list(kp_mult), list(kd_mult),
+        list(kp_mult), list(kd_mult), terrain=tr,
     )
     zeros = torch.zeros_like(pos[0])
     full = lambda x: x if isinstance(x, torch.Tensor) else zeros + x
@@ -660,6 +742,11 @@ def spec_header(spec: FusedSpec) -> str:
         f"#define LGC_DOF_LO {_flist(spec.dof_lo)}",
         f"#define LGC_DOF_HI {_flist(spec.dof_hi)}",
         f"#define LGC_DOF_VLIM {_flist(spec.dof_vlim)}",
+        # heightfield variant (K3): window side, inverse cell size and the
+        # clamp bound K - 1.001 as the reference's float32 arithmetic sees it
+        f"#define LGC_HF_K {spec.hf_K}",
+        f"#define LGC_HF_INV_HS {_flist([1.0 / spec.hf_hs if spec.hf_K else 0.0])[1:-1]}",
+        f"#define LGC_HF_GMAX {_flist([spec.hf_K - 1.001 if spec.hf_K else 0.0])[1:-1]}",
     ]
     return "\n".join(lines) + "\n"
 
@@ -726,7 +813,8 @@ class KernelBuild:
                 ptxas = "\n".join(l.strip() for l in f
                                   if "ptxas" in l or "registers" in l or "spill" in l)
         lib = ctypes.CDLL(self.lib_path)
-        lib.lgc_fused_control_step.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int,
+        # 12 inputs, the K3 window and its offsets (null for K1), 8 outputs
+        lib.lgc_fused_control_step.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int,
                                                                          ctypes.c_void_p]
         lib.lgc_fused_control_step.restype = ctypes.c_int
         lib.lgc_cuda_error_string.argtypes = [ctypes.c_int]
@@ -762,7 +850,17 @@ def ptxas_summary(ptxas: str) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _check_inputs(spec: FusedSpec, state, actions, dr):
+def patch_inputs(lp):
+    """The heightfield kernel's terrain inputs from a physics.patch.LocalPatch:
+    (window (B, K, K), xoff (B,), yoff (B,)), the offsets being the world
+    coordinates of window cell (0, 0) in float32 exactly as the reference
+    computes them (fused_step.py:978-979)."""
+    xoff = lp.x0.to(torch.float32) * lp.horizontal_scale - lp.border_offset
+    yoff = lp.y0.to(torch.float32) * lp.horizontal_scale - lp.border_offset
+    return lp.data.to(torch.float32).contiguous(), xoff, yoff
+
+
+def _check_inputs(spec: FusedSpec, state, actions, dr, terrain):
     ndof = len(spec.parent) - 1
     pos, quat, lin, ang, q, qd = state
     friction, added_mass, com_offset, kp_mult, kd_mult = dr
@@ -774,6 +872,16 @@ def _check_inputs(spec: FusedSpec, state, actions, dr):
         ("added_mass", added_mass, (B,)), ("com_offset", com_offset, (3, B)),
         ("kp_mult", kp_mult, (ndof, B)), ("kd_mult", kd_mult, (ndof, B)),
     ]
+    if spec.hf_K:
+        if terrain is None:
+            raise NotImplementedError(
+                "heightfield spec with no per-env patch: the heightfield kernel (K3) reads "
+                "each env's window; pass terrain=(patch, xoff, yoff)")
+        K = spec.hf_K
+        patch, xoff, yoff = terrain
+        expected += [("patch", patch, (B, K, K)), ("xoff", xoff, (B,)), ("yoff", yoff, (B,))]
+    elif terrain is not None:
+        raise ValueError("terrain inputs given for a plane spec (hf_K == 0)")
     device = pos.device
     for name, t, shape in expected:
         if not isinstance(t, torch.Tensor):
@@ -789,21 +897,24 @@ def _check_inputs(spec: FusedSpec, state, actions, dr):
     return B, device
 
 
-def fused_control_step(spec: FusedSpec, state, actions, dr):
+def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
     """One control step for B envs.
 
     state: (pos (3,B), quat (4,B), lin (3,B), ang (3,B), q (ndof,B), qd (ndof,B));
     actions (ndof,B); dr: (friction (B,), added_mass (B,), com_offset (3,B),
-    kp_mult (ndof,B), kd_mult (ndof,B)); all float32 and contiguous.
+    kp_mult (ndof,B), kd_mult (ndof,B)); terrain, for a heightfield spec:
+    (patch (B,K,K), xoff (B,), yoff (B,)) as `patch_inputs` gives them; all
+    float32 and contiguous.
     Returns ((pos, quat, lin, ang, q, qd), link_forces (nl,3,B), torques (ndof,B)).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream (adding one to `fused_control_step.launches`) or raise.
+    current stream (adding one to `fused_control_step.launches`, or to
+    `fused_control_step.hf_launches` for the heightfield variant) or raise.
     """
     check_covered(spec)
-    B, device = _check_inputs(spec, state, actions, dr)
+    B, device = _check_inputs(spec, state, actions, dr, terrain)
     if device.type == "cpu":
-        return plain_control_step(spec, state, actions, dr)
+        return plain_control_step(spec, state, actions, dr, terrain)
     if device.type != "cuda":
         raise RuntimeError(f"fused_control_step: unsupported device {device}")
     kernel = load_kernel(spec)
@@ -812,19 +923,25 @@ def fused_control_step(spec: FusedSpec, state, actions, dr):
     outs = (empty(3), empty(4), empty(3), empty(3), empty(ndof), empty(ndof),
             empty(3 * spec.n_links), empty(ndof))
     ins = (*state, actions, *dr)
+    terrain_ptrs = [t.data_ptr() for t in terrain] if spec.hf_K else [None] * 3
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = kernel.lib.lgc_fused_control_step(
-            *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs], B, stream
+            *[t.data_ptr() for t in ins], *terrain_ptrs, *[t.data_ptr() for t in outs], B,
+            stream
         )
     if err != 0:
         raise RuntimeError(
             "fused control-step kernel launch failed: "
             + kernel.lib.lgc_cuda_error_string(err).decode()
         )
-    fused_control_step.launches += 1
+    if spec.hf_K:
+        fused_control_step.hf_launches += 1
+    else:
+        fused_control_step.launches += 1
     opos, oquat, olin, oang, oq, oqd, olf, otau = outs
     return (opos, oquat, olin, oang, oq, oqd), olf.view(spec.n_links, 3, B), otau
 
 
-fused_control_step.launches = 0
+fused_control_step.launches = 0      # K1, the plane variant
+fused_control_step.hf_launches = 0   # K3, the heightfield variant

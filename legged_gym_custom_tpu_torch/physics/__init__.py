@@ -1,7 +1,7 @@
 """Batched Featherstone physics in PyTorch (port of legged_gym_custom_tpu/physics)."""
 from .actuator import PDParams, compute_torques
 from .algorithms import ModelArrays, aba, body_inertias, forward_kinematics, joint_transforms, model_arrays
-from .contact import ContactParams, compute_contacts
+from .contact import ContactParams, compute_contacts, geom_centers, sample_surface
 from .engine import (
     DomainRandParams,
     PhysicsState,
@@ -10,8 +10,11 @@ from .engine import (
     control_step,
     eager_control_step,
     link_states,
+    patch_K,
     substep,
 )
-from .heightfield import Heightfield, plane
+from .heightfield import Heightfield, from_raw, height_bilinear, height_min3, plane, surface
+from .patch import LocalPatch, extract as extract_patch
+from .patch import height_min3 as patch_height_min3
 from .model import RobotModel
 from .urdf import load_urdf

@@ -1,16 +1,23 @@
 """The batched physics engine, torch port of
-legged_gym_custom_tpu/physics/engine.py (flat-plane path).
+legged_gym_custom_tpu/physics/engine.py.
 
 One *control step* = `decimation` torque updates x `substeps` integrator
 substeps (reference legged_robot.py:79-85).  Layout: component-major with
 the env batch trailing (physics/soa.py); PhysicsState leaves are (3, B) /
 (4, B) / (ndof, B).
 
+On heightfield terrain a (K, K) window of the height table is cut around
+each env once per control step (physics/patch.py), and the contact surface
+under each sphere is sampled at the first substep of every decimation tick
+and held through the tick (`terrain_tick_sample`).
+
 On CUDA tensors `control_step` runs the whole control step as one launch of
-the hand-written kernel (ops/fused_step.py, ops/csrc/fused_step.cu) and
-raises NotImplementedError for a configuration the kernel does not cover; it
-never falls back to the eager path on the card.  On CPU tensors it runs
-`eager_control_step`, the plain PyTorch version of the same function.
+the hand-written kernel (ops/fused_step.py, ops/csrc/fused_step.cu): the
+plane variant on the flat plane, the heightfield variant with the per-env
+windows as input on a heightfield.  It raises NotImplementedError for a
+configuration the kernel does not cover and never falls back to the eager
+path on the card.  On CPU tensors it runs `eager_control_step`, the plain
+PyTorch version of the same function.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ import torch
 from . import soa
 from .actuator import PDParams, compute_torques
 from .algorithms import ModelArrays, aba, body_inertias, forward_kinematics
-from .contact import ContactParams, compute_contacts
+from . import patch
+from .contact import ContactParams, compute_contacts, geom_centers, sample_surface
 from .heightfield import Heightfield
 
 
@@ -46,6 +54,10 @@ class SimParams(NamedTuple):
     joint_limit_stiffness: float = 60.0
     joint_limit_damping: float = 2.0
     dof_vel_clamp: bool = True
+    # Half-width [m] of the per-env terrain window cut once per control step
+    # (physics/patch.py): it must cover the collision spheres' reach plus the
+    # base drift within one step.  0 samples the global table instead.
+    patch_halfwidth: float = 1.2
     # joint passive dynamics: each None (off) or an (ndof,) tensor
     dof_damping: Optional[torch.Tensor] = None       # viscous: -d * qd
     dof_armature: Optional[torch.Tensor] = None      # reflected rotor inertia
@@ -53,6 +65,11 @@ class SimParams(NamedTuple):
     frictionloss_vel_eps: float = 0.1
     # implicit stiction (velocity-space Coulomb clamp) is not ported yet
     frictionloss_implicit: bool = False
+    # Sample the terrain under each sphere once per decimation tick and hold
+    # it through the substeps (the reference plant's collision cadence,
+    # legged_robot.py:79-85); False resamples at every substep.  No effect
+    # on the flat plane.
+    terrain_tick_sample: bool = True
 
 
 class DomainRandParams(NamedTuple):
@@ -104,14 +121,17 @@ def _joint_passive_torque(params: SimParams, dof_vel):
     return tau
 
 
-def substep(ma: ModelArrays, hf: Heightfield, params: SimParams, dr: DomainRandParams,
-            dof_limits: tuple, state: PhysicsState, tau, dt: float, inertias):
-    """One semi-implicit Euler substep. Returns (state', contacts)."""
+def substep(ma: ModelArrays, hf, params: SimParams, dr: DomainRandParams,
+            dof_limits: tuple, state: PhysicsState, tau, dt: float, inertias, surface=None):
+    """One semi-implicit Euler substep. Returns (state', contacts).  `hf` is a
+    Heightfield or a patch.LocalPatch; `surface` an optional frozen contact
+    surface per geom (contact.sample_surface)."""
     v_base = _spatial_vbase(state)
     _, _, E0, p0w, v_body = forward_kinematics(
         ma, state.base_quat, state.base_pos, state.dof_pos, v_base, state.dof_vel
     )
-    contacts = compute_contacts(ma, hf, params.contact, dr.friction, E0, p0w, v_body)
+    contacts = compute_contacts(ma, hf, params.contact, dr.friction, E0, p0w, v_body,
+                                surface=surface)
     tau_total = tau + _joint_limit_torque(
         params, dof_limits[0], dof_limits[1], state.dof_pos, state.dof_vel
     )
@@ -159,18 +179,40 @@ def link_states(ma: ModelArrays, state: PhysicsState):
     return pos, vel
 
 
+def patch_K(hf: Heightfield, params: SimParams) -> int:
+    """Side of the per-env terrain window the control step cuts (reference
+    engine.py:310-313), or 0 on the plane or with `patch_halfwidth` 0."""
+    if hf.is_plane or params.patch_halfwidth <= 0:
+        return 0
+    return patch.patch_size(params.patch_halfwidth, hf.horizontal_scale)
+
+
 def eager_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,
                        dr: DomainRandParams, dof_limits: tuple, state: PhysicsState, actions):
     """The control step in plain PyTorch ops: decimation x substeps with the
-    PD torques refreshed from the current dof state at every tick."""
+    PD torques refreshed from the current dof state at every tick, as the
+    reference's XLA path (engine.py:301-380)."""
     dt_sub = params.dt / params.substeps
     inertias = body_inertias(ma, dr.added_mass, dr.com_offset)
+    terrain = hf
+    K = patch_K(hf, params)
+    if K and state.base_pos.dim() == 2:
+        terrain = patch.extract(hf, state.base_pos[0], state.base_pos[1], K)
+    tick_sample = params.terrain_tick_sample and not hf.is_plane
     link_forces = tau = None
     for _tick in range(params.decimation):
         tau = compute_torques(pd, actions, state.dof_pos, state.dof_vel, dr.kp_mult, dr.kd_mult)
+        surface = None
+        if tick_sample:
+            # freeze the contact surface for this 200 Hz tick
+            _, _, E0, p0w, _ = forward_kinematics(
+                ma, state.base_quat, state.base_pos, state.dof_pos, _spatial_vbase(state),
+                state.dof_vel)
+            surface = sample_surface(ma, terrain, geom_centers(ma, E0, p0w))
         lf_sum = 0.0
         for _s in range(params.substeps):
-            state, contacts = substep(ma, hf, params, dr, dof_limits, state, tau, dt_sub, inertias)
+            state, contacts = substep(ma, terrain, params, dr, dof_limits, state, tau, dt_sub,
+                                      inertias, surface=surface)
             lf_sum = lf_sum + contacts.link_force
         # mean over the tick's substeps (PhysX contact_collection=2 analog)
         link_forces = lf_sum / params.substeps
@@ -184,25 +226,36 @@ def control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDPara
     """Full 50 Hz control step.  Returns (state', StepInfo).
 
     CUDA tensors go through the fused kernel (`spec` is its FusedSpec, built
-    once by the caller; built here from the model when omitted).  CPU
-    tensors run `eager_control_step`.
+    once by the caller; built here from the model when omitted): on a
+    heightfield the per-env windows are cut here and passed to the kernel's
+    heightfield variant.  CPU tensors run `eager_control_step`.
     """
     if not state.dof_pos.is_cuda:
         return eager_control_step(ma, hf, params, pd, dr, dof_limits, state, actions)
     from ..ops import fused_step
 
+    terrain = None
     if not hf.is_plane:
-        raise NotImplementedError(
-            "heightfield terrain needs the terrain variant of the fused kernel (K3), "
-            "which is not ported yet"
-        )
+        K = patch_K(hf, params)
+        if K == 0:
+            raise NotImplementedError(
+                "heightfield terrain with no per-env patch (patch_halfwidth=0): the "
+                "heightfield kernel reads its window, there is no global-table kernel")
+        if not params.terrain_tick_sample:
+            raise NotImplementedError(
+                "terrain_tick_sample=False: the heightfield kernel samples the surface "
+                "once per decimation tick and has no per-substep variant")
+        lp = patch.extract(hf, state.base_pos[0], state.base_pos[1], K)
+        terrain = fused_step.patch_inputs(lp)
     if spec is None:
-        spec = fused_step.build_spec(ma, params, pd, dof_limits)
+        spec = fused_step.build_spec(ma, params, pd, dof_limits, hf_K=patch_K(hf, params),
+                                     hf_hs=0.0 if hf.is_plane else hf.horizontal_scale)
     out_state, link_forces, torques = fused_step.fused_control_step(
         spec,
         tuple(state),
         actions,
         (dr.friction, dr.added_mass, dr.com_offset, dr.kp_mult, dr.kd_mult),
+        terrain,
     )
     st = PhysicsState(*out_state)
     lpos, lvel = link_states(ma, st)

@@ -41,3 +41,11 @@ def quat_to_rpy(q):
 def wrap_to_pi(angles):
     """Wrap to [-pi, pi)."""
     return torch.remainder(angles + math.pi, 2 * math.pi) - math.pi
+
+
+def quat_apply_yaw(q, v):
+    """Rotate v by only the yaw component of q (reference utils/math.py:38-42)."""
+    _, _, yaw = quat_to_rpy(q)
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return torch.stack(torch.broadcast_tensors(c * x - s * y, s * x + c * y, z), dim=-1)

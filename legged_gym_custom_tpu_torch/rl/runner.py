@@ -145,6 +145,10 @@ class OnPolicyRunner:
             fin_len_sum=fin_len.sum().float(),
             fin_count=n_resets,
         )
+        if env.cfg.terrain.curriculum:
+            # curriculum telemetry from the post-rollout state (reference
+            # runner.py:208-211)
+            logs["terrain_level"] = self.env_state.terrain_levels.float().mean()
         return traj, returns, advantages, logs
 
     def _sync(self):
@@ -170,6 +174,8 @@ class OnPolicyRunner:
         episode = dict(zip(self.env.episode_sum_names, logs.pop("episode").tolist()))
         logs = {k: float(v) for k, v in logs.items()}
         logs["episode"] = {"rew_" + k: v for k, v in episode.items()}
+        if "terrain_level" in logs:
+            logs["episode"]["terrain_level"] = logs.pop("terrain_level")
         return metrics, logs
 
     # ------------------------------------------------------------------
@@ -205,6 +211,7 @@ class OnPolicyRunner:
                 iteration=it, update="dagger" if use_adaptation else "ppo",
                 env_steps_per_s=fps, collection_s=self.collection_time,
                 learning_s=self.learn_time, **metrics,
+                **{k: v for k, v in logs["episode"].items() if k == "terrain_level"},
             ))
             self.current_learning_iteration = it + 1
             if it % self.save_interval == 0 and self.log_dir is not None:
@@ -248,6 +255,8 @@ class OnPolicyRunner:
         if have_eps:
             lines.append(f"{'Mean reward:':>{pad}} {mean_reward:.2f}")
             lines.append(f"{'Mean episode length:':>{pad}} {mean_len:.2f}")
+        if "terrain_level" in logs["episode"]:
+            lines.append(f"{'Mean terrain level:':>{pad}} {logs['episode']['terrain_level']:.3f}")
         lines.append(f"{'Total timesteps:':>{pad}} {self.tot_timesteps}")
         lines.append(f"{'Total time:':>{pad}} {self.tot_time:.2f}s")
         print("\n".join(lines), flush=True)

@@ -36,8 +36,9 @@ class TaskRegistry:
             env_cfg, _ = self.get_cfgs(name)
         if args is not None:
             update_cfg_from_args(env_cfg, None, args)
-        set_seed(getattr(args, "seed", None) if args else None)
-        env = self.task_classes[name](env_cfg, env_cfg.asset.file, name=name, device=device)
+        seed = set_seed(getattr(args, "seed", None) if args else None)
+        env = self.task_classes[name](env_cfg, env_cfg.asset.file, name=name, device=device,
+                                      terrain_seed=seed)
         return env, env_cfg
 
     def make_alg_runner(self, env, name=None, args=None, train_cfg=None, log_root="default"):

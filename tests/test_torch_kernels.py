@@ -12,6 +12,7 @@ import torch
 from legged_gym_custom_tpu_torch import physics as tphys
 from legged_gym_custom_tpu_torch.envs import task_registry
 from legged_gym_custom_tpu_torch.ops import fused_step
+from legged_gym_custom_tpu_torch.physics import patch
 
 B = 4096
 # (atol, rtol) per output as in tests/test_fused_step.py:126-135, gated at the
@@ -19,6 +20,8 @@ B = 4096
 TOL = dict(base_pos=(1e-4, 1e-4), base_quat=(1e-4, 1e-4), lin_vel=(1e-3, 1e-3),
            ang_vel=(1e-3, 1e-3), dof_pos=(1e-4, 1e-4), dof_vel=(1e-2, 1e-3),
            link_forces=(0.05, 1e-3), torques=(1e-2, 1e-3))
+# the heightfield variant: dof_vel atol 2e-2 (tests/test_fused_step.py:185-193)
+HF_TOL = dict(TOL, dof_vel=(2e-2, 1e-3))
 DEFAULT = np.array([0.1, 0.8, -1.5, -0.1, 0.8, -1.5, 0.1, 1.0, -1.5, -0.1, 1.0, -1.5])
 
 
@@ -46,9 +49,9 @@ def _batch(seed=0):
     return tuple(map(t, state)), t(actions), tuple(map(t, dr))
 
 
-def _assert_close_p99(names, got, ref):
+def _assert_close_p99(names, got, ref, tol=TOL):
     for name, a, b in zip(names, got, ref):
-        atol, rtol = TOL[name]
+        atol, rtol = tol[name]
         assert torch.isfinite(a).all(), name
         ratio = ((a - b).abs() / (atol + rtol * b.abs())).flatten().double()
         assert float(torch.quantile(ratio, 0.99)) <= 1.0, name
@@ -97,3 +100,80 @@ def test_wrapper_raises_on_the_card_for_what_the_kernel_does_not_take(go2_env):
         fused_step.fused_control_step(spec, state, actions.t().contiguous().t(), dr)
     with pytest.raises(ValueError):
         fused_step.fused_control_step(spec, state, actions.cpu(), dr)
+
+
+@pytest.fixture(scope="module")
+def parkour_env():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernel has no CPU mode")
+    cfg, _ = task_registry.get_cfgs("go2_parkour")
+    cfg.env.num_envs = B
+    env, _ = task_registry.make_env("go2_parkour", env_cfg=cfg, device="cuda")
+    return env
+
+
+def _parkour_batch(env, seed):
+    """`_batch` with the bases over the go2_parkour gap courses, a quarter
+    of them within 0.3 m of a gap edge, and their contact windows."""
+    state, actions, dr = _batch(seed)
+    rng = np.random.default_rng(seed + 1)
+    t = env.cfg.terrain
+    col = int(t.border_size / t.horizontal_scale) + int(t.terrain_width / t.horizontal_scale) // 2
+    edges = (np.nonzero(np.diff(env.terrain.height_field_raw[:, col]))[0] + 1) \
+        * t.horizontal_scale - t.border_size
+    x = rng.uniform(0.0, t.num_rows * t.terrain_length, B)
+    x[: B // 4] = rng.choice(edges, B // 4) + rng.uniform(-0.3, 0.3, B // 4)
+    y = (rng.integers(0, t.num_cols, B) + 0.5) * t.terrain_width + rng.uniform(-4.0, 4.0, B)
+    pos = torch.as_tensor(np.stack([x, y, rng.uniform(0.25, 0.45, B)]), dtype=torch.float32,
+                          device="cuda").contiguous()
+    return (pos, *state[1:]), actions, dr
+
+
+@pytest.mark.cuda
+def test_heightfield_kernel_matches_plain_version(parkour_env):
+    spec = parkour_env.fused_spec
+    assert spec.hf_K == 24
+    state, actions, dr = _parkour_batch(parkour_env, 3)
+    lp = patch.extract(parkour_env.hf, state[0][0], state[0][1], spec.hf_K)
+    terrain = fused_step.patch_inputs(lp)
+    before = fused_step.fused_control_step.hf_launches
+    out = fused_step.fused_control_step(spec, state, actions, dr, terrain)
+    torch.cuda.synchronize()
+    assert fused_step.fused_control_step.hf_launches == before + 1
+    ref = fused_step.plain_control_step(spec, state, actions, dr, terrain)
+    _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]), HF_TOL)
+
+
+@pytest.mark.cuda
+def test_engine_on_card_runs_the_heightfield_kernel_and_matches_eager(parkour_env):
+    """`physics.control_step` on a heightfield cuts the windows and launches
+    K3 once, and agrees with the eager engine (whose windows are sampled by
+    physics/patch.py) on the same tensors."""
+    env = parkour_env
+    state, actions, dr = _parkour_batch(env, 4)
+    args = (env.ma, env.hf, env.sim_params, env.pd, tphys.DomainRandParams(*dr),
+            env.dof_limits, tphys.PhysicsState(*state), actions)
+    before = (fused_step.fused_control_step.launches, fused_step.fused_control_step.hf_launches)
+    st, info = tphys.control_step(*args, spec=env.fused_spec)
+    torch.cuda.synchronize()
+    assert (fused_step.fused_control_step.launches,
+            fused_step.fused_control_step.hf_launches) == (before[0], before[1] + 1)
+    st_e, info_e = tphys.eager_control_step(*args)
+    _assert_close_p99(NAMES, (*st, info.link_forces, info.torques),
+                      (*st_e, info_e.link_forces, info_e.torques), HF_TOL)
+
+
+@pytest.mark.cuda
+def test_engine_on_card_raises_for_uncovered_heightfield_variants(parkour_env):
+    env = parkour_env
+    state, actions, dr = _parkour_batch(env, 5)
+    base = (env.ma, env.hf, env.sim_params, env.pd, tphys.DomainRandParams(*dr),
+            env.dof_limits, tphys.PhysicsState(*state), actions)
+    for params in (env.sim_params._replace(patch_halfwidth=0.0),
+                   env.sim_params._replace(terrain_tick_sample=False)):
+        with pytest.raises(NotImplementedError):
+            tphys.control_step(*base[:2], params, *base[3:], spec=env.fused_spec)
+    with pytest.raises(NotImplementedError):
+        tphys.control_step(*base, spec=env.fused_spec._replace(control_type="T"))
+    with pytest.raises(NotImplementedError):   # no window for a heightfield spec
+        fused_step.fused_control_step(env.fused_spec, state, actions, dr)

@@ -279,18 +279,27 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_uncovered_variants_raise():
-    """'T' control and implicit stiction (K2) and the heightfield (K3) raise
-    NotImplementedError rather than running another path."""
+    """'T' control and implicit stiction (K2), on the plane and on a
+    heightfield, a heightfield step with no window, and per-substep terrain
+    resampling raise NotImplementedError rather than running another path."""
     spec = _go2_spec()
     state, actions, dr = _batch_t()
-    for bad in (spec._replace(control_type="T"), spec._replace(hf_K=16),
-                spec._replace(fl_dqd=(0.1,) * 12)):
+    hf_spec = spec._replace(hf_K=24, hf_hs=0.1)
+    terrain = (torch.zeros(8, 24, 24), torch.zeros(8), torch.zeros(8))
+    for bad, tr in ((spec._replace(control_type="T"), None),
+                    (hf_spec._replace(control_type="T"), terrain),
+                    (spec._replace(fl_dqd=(0.1,) * 12), None),
+                    (hf_spec._replace(fl_dqd=(0.1,) * 12), terrain),
+                    (hf_spec, None)):
         with pytest.raises(NotImplementedError):
-            tfused.fused_control_step(bad, state, actions, dr)
+            tfused.fused_control_step(bad, state, actions, dr, tr)
     _, (ma_t, pd_t, dl_t) = _both(SYNTHETIC_GO2_URDF, GO2_DEFAULT)
     with pytest.raises(NotImplementedError):
         tfused.build_spec(ma_t, _plant(12, False)._replace(frictionloss_implicit=True),
                           pd_t, dl_t)
+    with pytest.raises(NotImplementedError, match="terrain_tick_sample"):
+        tfused.build_spec(ma_t, _plant(12, False)._replace(terrain_tick_sample=False),
+                          pd_t, dl_t, hf_K=24, hf_hs=0.1)
 
 
 def test_spec_header_bakes_the_model():

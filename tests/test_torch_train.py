@@ -4,6 +4,8 @@ entry points' default device."""
 import ast
 import math
 import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -38,6 +40,23 @@ def test_two_iteration_cpu_training_saves_a_checkpoint(tmp_path):
         assert ckpt[key]["state"], key
 
 
+def test_two_iteration_cpu_training_go2_parkour(tmp_path):
+    """go2_parkour on its full 12 x 20 gap-course terrain at 8 envs: DAgger
+    then PPO, finite losses, a scan stream that sees the terrain."""
+    args = train_script.get_args(["--task", "go2_parkour", "--num_envs", "8",
+                                  "--max_iterations", "2", "--seed", "4", "--device", "cpu"])
+    runner, history = train_script.train(args, log_root=str(tmp_path))
+    assert [h["update"] for h in history] == ["dagger", "ppo"]
+    losses = [v for h in history for k, v in h.items() if k.endswith("loss")]
+    assert losses and all(math.isfinite(v) for v in losses)
+    env = runner.env
+    assert env.hf.data.shape == (3860, 2500) and env.fused_spec.hf_K == 24
+    assert runner.obs.scan.shape == (8, 132) and float(runner.obs.scan.abs().sum()) > 0.0
+    levels = runner.env_state.terrain_levels
+    assert int(levels.min()) >= 0 and int(levels.max()) < env.cfg.terrain.num_rows
+    assert history[-1]["terrain_level"] == float(levels.float().mean())
+
+
 def _imports(path):
     tree = ast.parse(open(path).read(), filename=path)
     for node in ast.walk(tree):
@@ -62,6 +81,18 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for mod in _imports(chip_smoke):
         assert mod.split(".")[0] not in FORBIDDEN, f"chip_smoke.py imports {mod}"
     assert checked >= 20
+
+
+def test_port_modules_load_without_jax():
+    """Importing the port's env, terrain, patch and kernel modules pulls in
+    neither JAX nor the JAX package, transitively (a fresh interpreter)."""
+    code = ("import sys\n"
+            "import legged_gym_custom_tpu_torch.envs, legged_gym_custom_tpu_torch.terrain\n"
+            "import legged_gym_custom_tpu_torch.physics.patch, legged_gym_custom_tpu_torch.ops.fused_step\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in %r))" % (FORBIDDEN,))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                         cwd=os.path.dirname(PORT_DIR), check=True)
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
