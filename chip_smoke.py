@@ -1,38 +1,61 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--stop-after build|check|timing]
+
+With `--stop-after` it ends after that phase with exit code 0 and without the
+last line: a short first run for a new kernel build.
 
 Phases (any failure exits non-zero; the last line is printed only on success):
   1. card    - device name and `nvidia-smi` name / power limit;
   2. build   - nvcc-builds every kernel of the main paths from the sources in
-               this checkout, one build per kernel, all started together: K1
-               (the fused control step on the plane, go2) and K3 (its
-               heightfield variant, go2_parkour); prints build seconds and
-               each ptxas register / spill report;
+               this checkout, one build per spec, all four started together:
+               K1 (the fused control step on the plane, go2), K3 (its
+               heightfield variant, go2_parkour) and two builds of the K2
+               options: `fused_control_step_stiction` (go2_stiction's own
+               spec: plane, 'P' control, implicit stiction) and
+               `fused_control_step_T_hf` ('T' control with implicit stiction
+               on the go2_parkour heightfield, the combination farthest from
+               K1); prints build seconds and each ptxas register / spill
+               report;
   3. check   - each kernel against its plain PyTorch version on the card, at
                the main path's shapes, B = 4096 envs on the synthetic
-               Go2-shaped URDF: K1 on a seeded random batch, K3 on the
-               go2_parkour env's own gap-course terrain with a quarter of
-               the bases within 0.3 m of a gap edge and the windows cut by
-               `physics.patch.extract`; each output gated at its 99th
-               percentile;
+               Go2-shaped URDF: K1 on a seeded random batch, the heightfield
+               builds on the go2_parkour env's own gap-course terrain with a
+               quarter of the bases within 0.3 m of a gap edge and the
+               windows cut by `physics.patch.extract`, the stiction build on
+               a batch with a quarter of the joints at rest; each output
+               gated at its 99th percentile, and for the stiction builds the
+               (joint, env) entries that end at exactly zero velocity must
+               be the same set in kernel and plain version up to 1 %;
   4. timing  - CUDA-event medians of each kernel and of its plain version;
                the bound from the bytes and operations of this run's inputs;
-  5. train   - `scripts.train --task go2_parkour --num_envs 4096
-               --max_iterations 3`, then the same for `--task go2` (iteration
-               0 DAgger, 1-2 PPO), each with every launch counter set to 0 just
-               before and read just after: the path's kernel must have
-               launched 1 + 24 per iteration times and the other kernel not at
-               all, every loss must be finite, and on go2_parkour the scan
-               stream must see the terrain;
-  6. profile - wall and device time of a policy + env step of each task, top
+  5. closed loop - 25 control steps of the stiction kernel and of its plain
+               version side by side from one seeded batch of 1024 envs under
+               one action sequence: Kolmogorov-Smirnov distance of the final
+               joint angles and base heights under 0.05;
+  6. paths   - `scripts.train --task go2_parkour --num_envs 4096
+               --max_iterations 3`, the same for `--task go2`, then the
+               go2_stiction path: train 3 iterations, `--resume` for one more
+               (loads the newest checkpoint, starts at iteration 3, ROA
+               coefficient 0.1), `scripts.play` for 100 steps (exports
+               `policy_bundle.npz`), and the numpy policy runtime on that
+               bundle against the torch policy; then 24 steps of the 'T'
+               heightfield env under random actions.  Every launch counter is
+               set to 0 just before each run and read just after: the path's
+               kernel must have launched once per env step (plus one in
+               `reset_all`) and no other kernel at all, every loss must be
+               finite, and on go2_parkour the scan stream must see the terrain;
+  7. profile - wall and device time of a policy + env step of each task, top
                kernels.
 Then it prints the kernels' JSON line, the card's line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
+import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -47,6 +70,10 @@ PEAK_BYTES_PER_S = 3.35e12
 NUM_ENVS = 4096
 TRAIN_ITERATIONS = 3
 STEPS_PER_ITERATION = 24
+PLAY_STEPS = 100
+KS_ENVS, KS_STEPS, KS_GATE = 1024, 25, 0.05   # the gate of tests/test_fused_step.py:336
+SOURCE = "legged_gym_custom_tpu_torch/ops/csrc/fused_step.cu"
+REFERENCE = "legged_gym_custom_tpu/ops/fused_step.py"
 # Per-output tolerances (atol, rtol) of tests/test_fused_step.py:126-135 (K1)
 # and :185-193 (K3: dof_vel atol 2e-2 on a heightfield).  The gate is on the
 # 99th percentile of err / (atol + rtol |ref|): grazing contacts give a
@@ -121,6 +148,71 @@ def parkour_batch(env, seed: int, device):
     state = (pos.contiguous(), *state[1:])
     lp = patch.extract(env.hf, pos[0], pos[1], env.fused_spec.hf_K)
     return state, actions, dr, fused_step.patch_inputs(lp), len(edges)
+
+
+def rest_quarter(args, spec, seed: int):
+    """`args` with a random quarter of the (joint, env) entries at rest: zero
+    joint velocity and, under 'P' control, the action whose target is the
+    current angle, so the stiction clamp has joints to hold."""
+    state, actions, dr, *terrain = args
+    gen = torch.Generator(device=actions.device).manual_seed(seed)
+    rest = torch.rand(actions.shape, generator=gen, device=actions.device) < 0.25
+    qd = torch.where(rest, torch.zeros_like(state[5]), state[5]).contiguous()
+    if spec.control_type == "P":
+        default = torch.tensor(spec.default_dof_pos, dtype=torch.float32, device=actions.device)
+        hold = (state[4] - default[:, None]) / spec.action_scale
+        actions = torch.where(rest, hold, actions).contiguous()
+    return ((*state[:5], qd), actions, dr, *terrain), int(rest.sum())
+
+
+def zero_sets_agree(label, qd_k, qd_p) -> bool:
+    """The (joint, env) entries at exactly zero velocity, kernel against plain
+    version: the two sets may differ in at most 1 % of all entries."""
+    zk, zp = qd_k == 0.0, qd_p == 0.0
+    differ = int((zk != zp).sum())
+    log(f"[check] {label} joints held at exactly qd == 0: kernel {int(zk.sum())}, plain "
+        f"{int(zp.sum())}, in both {int((zk & zp).sum())}, differing {differ} of {zk.numel()} "
+        f"entries ({differ / zk.numel():.3%}, gate 1 %)")
+    return differ <= 0.01 * zk.numel()
+
+
+def ks_distance(a: np.ndarray, b: np.ndarray) -> float:
+    """Two-sample Kolmogorov-Smirnov statistic."""
+    a, b = np.sort(a.ravel()), np.sort(b.ravel())
+    grid = np.concatenate([a, b])
+    cdf_a = np.searchsorted(a, grid, side="right") / a.size
+    cdf_b = np.searchsorted(b, grid, side="right") / b.size
+    return float(np.abs(cdf_a - cdf_b).max())
+
+
+def closed_loop_ks(label, spec, device) -> bool:
+    """KS_STEPS control steps of the kernel and of its plain version from one
+    seeded batch under one action sequence (an AR(1) of seeded normals, as
+    tests/test_fused_step.py:374-378): the distributions of the final joint
+    angles and base heights must agree.  Stick and slip decide differently
+    from a one-ULP seed, so single envs may part; the distribution must not."""
+    from legged_gym_custom_tpu_torch.ops import fused_step
+
+    state0, _, dr = rand_batch(21, KS_ENVS, device)
+    gen = torch.Generator(device=device).manual_seed(77)
+    st_k = st_p = state0
+    a = torch.zeros((12, KS_ENVS), device=device)
+    t0 = time.time()
+    for _ in range(KS_STEPS):
+        a = 0.8 * a + 0.2 * torch.randn(a.shape, generator=gen, device=device) * 1.5
+        act = a.clamp(-3.14, 3.14).contiguous()
+        st_k = fused_step.fused_control_step(spec, st_k, act, dr)[0]
+        st_p = tuple(t.contiguous() for t in fused_step.plain_control_step(spec, st_p, act, dr)[0])
+    torch.cuda.synchronize()
+    ks_q = ks_distance(st_k[4].cpu().numpy(), st_p[4].cpu().numpy())
+    ks_z = ks_distance(st_k[0][2].cpu().numpy(), st_p[0][2].cpu().numpy())
+    finite = all(bool(torch.isfinite(t).all()) for t in (*st_k, *st_p))
+    held = int((st_k[5] == 0.0).sum())
+    log(f"[closed loop] {label}: {KS_STEPS} control steps, {KS_ENVS} envs, {time.time() - t0:.1f}s; "
+        f"KS distance dof_pos {ks_q:.4f}, base height {ks_z:.4f} (gate {KS_GATE}); finite "
+        f"{finite}; {held} (joint, env) entries held at qd == 0 at the end; max |dof_pos "
+        f"difference| {float((st_k[4] - st_p[4]).abs().max()):.3e}")
+    return finite and ks_q < KS_GATE and ks_z < KS_GATE
 
 
 def count_operations(fn, *args) -> int:
@@ -271,50 +363,154 @@ def time_kernel(label, spec, args, out_k, extra_bytes=()):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def train_task(task: str, counter: str, other: str, device):
-    """The main path of `task`: the train CLI's `train` at 4096 envs, with
+def only_launched(what: str, variant: str, expected: int) -> bool:
+    """True when `variant` launched `expected` times since the counters were
+    set to 0, and no other variant at all."""
+    from legged_gym_custom_tpu_torch.ops import fused_step
+
+    counts = fused_step.launch_counts()
+    log(f"[launches] {what}: {json.dumps(counts)}; expected {variant} {expected}, the rest 0")
+    ok = counts.get(variant, 0) == expected and all(
+        n == 0 for name, n in counts.items() if name != variant)
+    if not ok:
+        log(f"[launches] FAIL: {what} did not launch {variant} once per env step, and only it")
+    return ok
+
+
+def train_task(task: str, variant: str, iterations: int = TRAIN_ITERATIONS, first_iteration=0,
+               updates=("dagger", "ppo", "ppo"), extra=(), log_root="default"):
+    """A training path of `task`: the train CLI's `train` at 4096 envs, with
     the launch counters set to 0 just before and read just after.  Returns
-    (runner, launches of the path's kernel) or None on a failed gate."""
+    (runner, history, launches of the path's kernel) or None on a failed gate."""
     from legged_gym_custom_tpu_torch.ops import fused_step
     from legged_gym_custom_tpu_torch.scripts import train as train_script
 
     args = train_script.get_args(["--task", task, "--num_envs", str(NUM_ENVS),
-                                  "--max_iterations", str(TRAIN_ITERATIONS), "--seed", "1",
-                                  "--device", "cuda", "--run_name", "chip_smoke"])
-    fused_step.fused_control_step.launches = 0
-    fused_step.fused_control_step.hf_launches = 0
+                                  "--max_iterations", str(iterations), "--seed", "1",
+                                  "--device", "cuda", "--run_name", "chip_smoke", *extra])
+    fused_step.reset_launch_counts()
     t0 = time.time()
-    runner, history = train_script.train(args)
+    runner, history = train_script.train(args, log_root=log_root)
     torch.cuda.synchronize()
-    launches = getattr(fused_step.fused_control_step, counter)
-    other_launches = getattr(fused_step.fused_control_step, other)
+    launches = fused_step.launch_counts().get(variant, 0)
     train_s = time.time() - t0
-    expected = 1 + STEPS_PER_ITERATION * TRAIN_ITERATIONS  # reset_all steps once
+    expected = 1 + STEPS_PER_ITERATION * iterations  # reset_all steps once
+    label = f"{task}{' ' + ' '.join(extra) if extra else ''}"
     for h in history:
         level = f", mean terrain level {h['terrain_level']:.3f}" if "terrain_level" in h else ""
-        log(f"[train] {task} it {h['iteration']} {h['update']:6s} {h['env_steps_per_s']:.0f} "
+        log(f"[train] {label} it {h['iteration']} {h['update']:6s} {h['env_steps_per_s']:.0f} "
             f"env-steps/s (collection {h['collection_s']:.3f}s, learning "
             f"{h['learning_s']:.3f}s){level}")
-    log(f"[train] {task}: {len(history)} iterations in {train_s:.1f}s; {counter} {launches} "
-        f"(expected {expected}), {other} {other_launches} (expected 0)")
+    log(f"[train] {label}: {len(history)} iterations in {train_s:.1f}s")
+    if not only_launched(label, variant, expected):
+        return None
     losses = [v for h in history for k, v in h.items() if k.endswith("loss")]
-    if launches != expected or other_launches != 0:
-        log(f"[train] FAIL: {task} did not launch its kernel once per env step, and only it")
+    if len(history) != iterations or not all(np.isfinite(losses)) or not losses:
+        log(f"[train] FAIL: {label}: missing iterations or a non-finite loss")
         return None
-    if len(history) != TRAIN_ITERATIONS or not all(np.isfinite(losses)) or not losses:
-        log(f"[train] FAIL: {task}: missing iterations or a non-finite loss")
+    if [h["update"] for h in history] != list(updates) or \
+            [h["iteration"] for h in history] != list(range(first_iteration,
+                                                            first_iteration + iterations)):
+        log(f"[train] FAIL: {label}: expected updates {list(updates)} from iteration "
+            f"{first_iteration}")
         return None
-    if [h["update"] for h in history] != ["dagger", "ppo", "ppo"]:
-        log(f"[train] FAIL: {task}: expected DAgger then PPO updates")
+    return runner, history, launches
+
+
+def stiction_path(device, variant: str, log_root: str):
+    """The go2_stiction main path after training: resume for one iteration,
+    play with the play-time overrides and export, then the numpy policy
+    runtime on the exported bundle against the torch policy.  Returns the
+    launches of resume and play together, or None on a failed gate."""
+    from legged_gym_custom_tpu_torch.deploy import (NumpyAdaptationEncoder, NumpyMLP,
+                                                    load_policy_bundle)
+    from legged_gym_custom_tpu_torch.ops import fused_step
+    from legged_gym_custom_tpu_torch.scripts import play as play_script
+    from legged_gym_custom_tpu_torch.utils.task_registry import get_load_path
+
+    newest = get_load_path(log_root)
+    result = train_task("go2_stiction", variant, iterations=1, first_iteration=TRAIN_ITERATIONS,
+                        updates=("ppo",), extra=("--resume",), log_root=log_root)
+    if result is None:
         return None
-    return runner, launches
+    runner, history, resume_launches = result
+    roa = history[0]["reg_coef"]
+    log(f"[resume] loaded the newest checkpoint {os.path.relpath(newest, log_root)}; iteration "
+        f"{history[0]['iteration']}, ROA coefficient {roa:.4f} (resume schedule: 0.1), "
+        f"{runner.train_state.total_updates:.0f} updates so far")
+    if not newest.endswith(f"model_{TRAIN_ITERATIONS}.pt") or abs(roa - 0.1) > 1e-6 or \
+            runner.train_state.total_updates != TRAIN_ITERATIONS + 1:
+        log("[resume] FAIL: wrong checkpoint, ROA coefficient or update count")
+        return None
+
+    fused_step.reset_launch_counts()
+    args = play_script.get_args(["--task", "go2_stiction", "--num_envs", "100", "--steps",
+                                 str(PLAY_STEPS), "--device", "cuda"])
+    t0 = time.time()
+    played = play_script.play(args, log_root=log_root)
+    torch.cuda.synchronize()
+    log(f"[play] go2_stiction: {PLAY_STEPS} steps of {played.runner.env.num_envs} envs in "
+        f"{time.time() - t0:.1f}s; loaded iteration {played.runner.current_learning_iteration}; "
+        f"actions finite {played.actions_finite}; bundle {played.bundle_path}")
+    if not only_launched("play go2_stiction", variant, 1 + PLAY_STEPS):
+        return None
+    if not played.actions_finite or not os.path.isfile(played.bundle_path) or \
+            played.runner.current_learning_iteration != TRAIN_ITERATIONS + 1:
+        log("[play] FAIL: a non-finite action, no bundle, or not the resumed checkpoint")
+        return None
+
+    # the numpy runtime on the exported bundle against the torch policy, on
+    # the observation play's last action was computed from
+    bundle = load_policy_bundle(played.bundle_path)
+    policy, estimator = NumpyMLP(bundle["policy"]), NumpyMLP(bundle["estimator"])
+    scan_encoder = NumpyMLP(bundle["scan_encoder"])
+    adaptation = NumpyAdaptationEncoder(bundle["adaptation_module"])
+    nets = played.runner.nets
+    obs = played.obs.obs.cpu().numpy()
+    scan = played.obs.scan.cpu().numpy()
+    hist = obs[:, : -nets.num_proprio].reshape(-1, nets.history_buffer_length, nets.num_proprio)
+    out = np.stack([
+        policy(np.concatenate([o, adaptation(h), scan_encoder(s), estimator(o)]))
+        for o, h, s in zip(obs, hist, scan)])
+    diff = float(np.abs(out - played.actions.cpu().numpy()).max())
+    log(f"[export] numpy runtime on the bundle against the torch policy, {len(obs)} "
+        f"observations: max abs action difference {diff:.3e} (gate 1e-4)")
+    if not diff < 1e-4:
+        log("[export] FAIL: the numpy runtime disagrees with the torch policy")
+        return None
+    return resume_launches + 1 + PLAY_STEPS
+
+
+def torque_rollout(env, variant: str) -> int:
+    """24 env steps of the 'T' heightfield env under seeded random actions;
+    returns the launches of its kernel, or -1 on a failed gate."""
+    from legged_gym_custom_tpu_torch.ops import fused_step
+
+    gen = torch.Generator(device=env.device).manual_seed(5)
+    fused_step.reset_launch_counts()
+    state, obs = env.reset_all(gen)
+    finite = True
+    for _ in range(STEPS_PER_ITERATION):
+        actions = torch.randn((env.num_envs, env.num_actions), generator=gen, device=env.device)
+        state, obs, rew, _, _ = env.step(state, actions)
+        finite = finite and bool(torch.isfinite(obs.obs).all() and torch.isfinite(rew).all())
+    torch.cuda.synchronize()
+    log(f"[rollout] 'T' control with implicit stiction on the go2_parkour terrain: "
+        f"{STEPS_PER_ITERATION} env steps of {env.num_envs} envs, observations and rewards "
+        f"finite {finite}")
+    if not only_launched("'T' heightfield rollout", variant, 1 + STEPS_PER_ITERATION) or not finite:
+        return -1
+    return 1 + STEPS_PER_ITERATION
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser("chip_smoke")
+    parser.add_argument("--stop-after", choices=("build", "check", "timing"), default=None)
+    stop_after = parser.parse_args().stop_after
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
         return 2
-    from legged_gym_custom_tpu_torch import SYNTHETIC_GO2_URDF
+    from legged_gym_custom_tpu_torch import LEGGED_GYM_TORCH_ROOT_DIR, SYNTHETIC_GO2_URDF
     from legged_gym_custom_tpu_torch.envs import task_registry
     from legged_gym_custom_tpu_torch.ops import fused_step
 
@@ -326,20 +522,33 @@ def main() -> int:
     kind, smi = card_lines()
     log(f"[card] {kind} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # ---- 2. build (one nvcc per kernel, all started together)
-    envs = {}
-    for task in ("go2", "go2_parkour"):
+    # ---- 2. build (one nvcc per spec, all started together)
+    def make_env(task, torque_control=False):
         env_cfg, _ = task_registry.get_cfgs(task)
         env_cfg.env.num_envs = NUM_ENVS
-        envs[task], _ = task_registry.make_env(task, env_cfg=env_cfg, device=device)
-    log(f"[urdf] {env_cfg.asset.file} (synthetic Go2-shaped model: "
-        f"{env_cfg.asset.file == SYNTHETIC_GO2_URDF})")
-    hf = envs["go2_parkour"].hf
+        if torque_control:   # the K2 combination farthest from K1
+            env_cfg.control.control_type = "T"
+            env_cfg.control.action_scale = 5.0   # tests/test_fused_step.py:558
+            env_cfg.sim.joint_frictionloss_implicit = True
+        return task_registry.make_env(task, env_cfg=env_cfg, device=device)[0]
+
+    envs = {"fused_control_step": make_env("go2"),
+            "fused_control_step_hf": make_env("go2_parkour"),
+            "fused_control_step_stiction": make_env("go2_stiction"),
+            "fused_control_step_T_hf": make_env("go2_parkour", torque_control=True)}
+    urdf = envs["fused_control_step"].cfg.asset.file
+    log(f"[urdf] {urdf} (synthetic Go2-shaped model: {urdf == SYNTHETIC_GO2_URDF})")
+    parkour = envs["fused_control_step_hf"]
+    hf = parkour.hf
     log(f"[terrain] go2_parkour: {tuple(hf.data.shape)} float32 table, "
         f"{hf.data.numel() * 4 / 1e6:.1f} MB on the card; contact window "
-        f"K={envs['go2_parkour'].fused_spec.hf_K}, scan window K={envs['go2_parkour']._scan_patch_K}")
-    specs = {"fused_control_step": envs["go2"].fused_spec,
-             "fused_control_step_hf": envs["go2_parkour"].fused_spec}
+        f"K={parkour.fused_spec.hf_K}, scan window K={parkour._scan_patch_K}")
+    specs = {name: env.fused_spec for name, env in envs.items()}
+    variants = {name: fused_step.variant_name(spec) for name, spec in specs.items()}
+    for name in ("fused_control_step_stiction", "fused_control_step_T_hf"):
+        sp = specs[name]
+        log(f"[spec] {name} (counter {variants[name]}): control {sp.control_type!r}, hf_K "
+            f"{sp.hf_K}, fl_dqd {json.dumps([float(np.float32(v)) for v in sp.fl_dqd])}")
     t0 = time.time()
     builds = {name: fused_step.KernelBuild(spec) for name, spec in specs.items()}
     kernels = {name: b.finish() for name, b in builds.items()}
@@ -350,42 +559,90 @@ def main() -> int:
         for line in kernel.ptxas.splitlines():
             log(f"[build] {name} ptxas: {line}")
 
+    if stop_after == "build":
+        log("[stop] after build")
+        return 0
+
     # ---- 3. each kernel against its plain version on the card
-    spec1, spec3 = specs["fused_control_step"], specs["fused_control_step_hf"]
-    args1 = rand_batch(0, NUM_ENVS, device)
-    out1 = fused_step.fused_control_step(spec1, *args1)
+    def check(name, label, args, tolerances):
+        out = fused_step.fused_control_step(specs[name], *args)
+        torch.cuda.synchronize()
+        ref = fused_step.plain_control_step(specs[name], *args)
+        ok, err = check_kernel(label, NAMES, tolerances, out, ref)
+        if specs[name].fl_dqd:
+            ok &= zero_sets_agree(label, out[0][5], ref[0][5])
+        return ok, err, out
+
+    args, outs, errs, ok = {}, {}, {}, True
+    args["fused_control_step"] = rand_batch(0, NUM_ENVS, device)
+    *args["fused_control_step_hf"], n_edges = parkour_batch(parkour, 2, device)
+    near = int((torch.as_tensor(gap_edges(parkour), device=device)[:, None]
+                - args["fused_control_step_hf"][0][0][0][None]).abs().min(dim=0).values
+               .le(0.3).sum())
+    log(f"[check] heightfield batches on the go2_parkour terrain: {n_edges} gap edges along a "
+        f"course line, {near} of {NUM_ENVS} bases within 0.3 m of one")
+    args["fused_control_step_stiction"], n_rest = rest_quarter(
+        rand_batch(3, NUM_ENVS, device), specs["fused_control_step_stiction"], seed=4)
+    t_env = envs["fused_control_step_T_hf"]
+    args["fused_control_step_T_hf"], n_rest_t = rest_quarter(
+        parkour_batch(t_env, 6, device)[:4], specs["fused_control_step_T_hf"], seed=7)
+    log(f"[check] joints put at rest (qd = 0): {n_rest} of {12 * NUM_ENVS} (joint, env) entries "
+        f"in the stiction batch ('P': action at the current angle), {n_rest_t} in the 'T' batch")
+    for name, label, tol in (("fused_control_step", "K1", TOLERANCES),
+                             ("fused_control_step_hf", "K3", HF_TOLERANCES),
+                             ("fused_control_step_stiction", "K2 stiction", TOLERANCES),
+                             ("fused_control_step_T_hf", "K2 'T' hf", HF_TOLERANCES)):
+        ok_k, errs[name], outs[name] = check(name, label, args[name], tol)
+        ok &= ok_k
     torch.cuda.synchronize()
-    ok1, err1 = check_kernel("K1", NAMES, TOLERANCES, out1,
-                             fused_step.plain_control_step(spec1, *args1))
-    *args3, n_edges = parkour_batch(envs["go2_parkour"], 2, device)
-    near = int((torch.as_tensor(gap_edges(envs["go2_parkour"]), device=device)[:, None]
-                - args3[0][0][0][None]).abs().min(dim=0).values.le(0.3).sum())
-    log(f"[check] K3 on the go2_parkour terrain: {n_edges} gap edges along a course line, "
-        f"{near} of {NUM_ENVS} bases within 0.3 m of one")
-    out3 = fused_step.fused_control_step(spec3, *args3)
-    torch.cuda.synchronize()
-    ok3, err3 = check_kernel("K3", NAMES, HF_TOLERANCES, out3,
-                             fused_step.plain_control_step(spec3, *args3))
-    torch.cuda.synchronize()
-    if not (ok1 and ok3) or near < NUM_ENVS // 4:
+    if not ok or near < NUM_ENVS // 4:
         log("[check] FAIL: a kernel disagrees with its plain version (or too few bases at "
             "gap edges)")
         return 1
 
-    # ---- 4. timing and bound
-    t1 = time_kernel("fused_control_step (K1)", spec1, args1, out1)
-    t3 = time_kernel("fused_control_step_hf (K3)", spec3, args3, out3)
-    del envs, args1, args3, out1, out3
+    if stop_after == "check":
+        log("[stop] after check")
+        return 0
 
-    # ---- 5. the main paths: counters 0 just before each, read just after
-    trained = {}
-    for task, counter, other in (("go2_parkour", "hf_launches", "launches"),
-                                 ("go2", "launches", "hf_launches")):
-        result = train_task(task, counter, other, device)
+    # ---- 4. timing and bound
+    labels = {"fused_control_step": "K1", "fused_control_step_hf": "K3",
+              "fused_control_step_stiction": "K2: 'P', implicit stiction, plane",
+              "fused_control_step_T_hf": "K2: 'T', implicit stiction, heightfield"}
+    timings = {name: time_kernel(f"{name} ({labels[name]})", specs[name], args[name], outs[name])
+               for name in specs}
+
+    if stop_after == "timing":
+        log("[stop] after timing")
+        return 0
+
+    # ---- 5. closed loop: the stiction kernel and its plain version side by side
+    if not closed_loop_ks("fused_control_step_stiction", specs["fused_control_step_stiction"],
+                          device):
+        log("[closed loop] FAIL: the kernel's rollout leaves the plain version's distribution")
+        return 1
+    del envs, parkour, args, outs
+
+    # ---- 6. the main paths: counters 0 just before each, read just after
+    trained, launches = {}, {}
+    smoke_root = os.path.join(LEGGED_GYM_TORCH_ROOT_DIR, "logs", "chip_smoke_go2_stiction")
+    shutil.rmtree(smoke_root, ignore_errors=True)   # resume and play load its newest run
+    for task, name, log_root in (("go2_parkour", "fused_control_step_hf", "default"),
+                                 ("go2", "fused_control_step", "default"),
+                                 ("go2_stiction", "fused_control_step_stiction", smoke_root)):
+        result = train_task(task, variants[name], log_root=log_root)
         if result is None:
             return 1
-        trained[task] = result
-    runner3, launches3 = trained["go2_parkour"]
+        trained[task], _, launches[name] = result
+    more = stiction_path(device, variants["fused_control_step_stiction"], smoke_root)
+    if more is None:
+        return 1
+    launches["fused_control_step_stiction"] += more
+    launches["fused_control_step_T_hf"] = torque_rollout(t_env,
+                                                         variants["fused_control_step_T_hf"])
+    if launches["fused_control_step_T_hf"] < 0:
+        return 1
+    del t_env
+    runner3 = trained["go2_parkour"]
     scan = runner3.obs.scan
     if not bool(torch.isfinite(scan).all()) or float(scan.abs().sum()) == 0.0:
         log("[train] FAIL: the go2_parkour scan stream is all zero or not finite")
@@ -397,20 +654,19 @@ def main() -> int:
         f"{float((scan.abs() > 0).float().mean()):.1%} of scandot entries nonzero; "
         f"terrain_levels moved for {moved} of {NUM_ENVS} envs")
 
-    # ---- 6. where a training env step's time goes (after the main paths' counts)
-    for task, (runner, _) in trained.items():
+    # ---- 7. where a training env step's time goes (after the main paths' counts)
+    for task, runner in trained.items():
         profile_env_steps(runner, task)
 
-    entry = lambda name, replaces, launches, err, t: dict(
-        name=name, route="cuda", source="legged_gym_custom_tpu_torch/ops/csrc/fused_step.cu",
-        replaces=replaces, launches=launches, max_abs_err=err, ms=t["ms"],
-        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
+    replaces = {"fused_control_step": f"{REFERENCE}:824",
+                "fused_control_step_hf": f"{REFERENCE}:352",
+                "fused_control_step_stiction": f"{REFERENCE}:633",
+                "fused_control_step_T_hf": f"{REFERENCE}:690"}
     line = {"kernels": [
-        entry("fused_control_step", "legged_gym_custom_tpu/ops/fused_step.py:824",
-              trained["go2"][1], err1, t1),
-        entry("fused_control_step_hf", "legged_gym_custom_tpu/ops/fused_step.py:352",
-              launches3, err3, t3),
-    ]}
+        dict(name=name, route="cuda", source=SOURCE, replaces=replaces[name],
+             launches=launches[name], max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
+             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
+        for name, t in timings.items()]}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,11 +3,12 @@
 The JAX package beside it (`legged_gym_custom_tpu/`) is the reference; this
 package mirrors its layout and names so each counterpart is found by path:
 
-  scripts/   CLI entry points (train)
-  utils/     config DSL, task registry, checkpoint
+  scripts/   CLI entry points (train with --resume, play)
+  utils/     config DSL, task registry, checkpoint, play-time logger
+  deploy/    .npz policy-bundle export and the numpy policy runtime
   rl/        PPO + ROA + DAgger runner
   models/    torch.nn actor-critic and encoders
-  envs/      batched legged-robot env (go2 flat)
+  envs/      batched legged-robot env (go2, go2_stiction, go2_parkour)
   physics/   batched Featherstone + penalty-contact engine, (C, B) layout
   ops/       hand-written CUDA kernels for Hopper (sm_90a)
 

@@ -188,8 +188,17 @@ class LeggedEnv:
             dof_frictionloss=_per_dof(getattr(cfg.sim, "joint_frictionloss", 0.0)),
             frictionloss_implicit=bool(getattr(cfg.sim, "joint_frictionloss_implicit", False)),
         )
-        # the fused kernel's compile-time constants, built once host-side:
-        # K1 on the plane, K3 (with the contact window's size) on a heightfield
+        if (self.sim_params.frictionloss_implicit
+                and self.sim_params.dof_frictionloss is not None):
+            # implicit stiction clamps by fl * dt / m_eff, with m_eff taken
+            # at the default joint angles (reference base_env.py:174-186)
+            self.sim_params = self.sim_params._replace(
+                dof_meff=phys.effective_joint_inertia(
+                    self.ma, default_dof_pos.astype(np.float32),
+                    armature=self.sim_params.dof_armature))
+        # the fused kernel's compile-time constants, built once host-side: K1
+        # on the plane, K3 (with the contact window's size) on a heightfield,
+        # each with the K2 options ('T' control, implicit stiction) the config asks for
         self.fused_spec = fused_step.build_spec(
             self.ma, self.sim_params, self.pd, self.dof_limits,
             hf_K=phys.patch_K(self.hf, self.sim_params),

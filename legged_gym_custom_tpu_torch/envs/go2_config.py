@@ -1,6 +1,7 @@
 """Go2 task + train configs (copy of legged_gym_custom_tpu/envs/go2_config.py).
 
-Only the flat `go2` task is carried over so far.
+The flat `go2` task and `go2_stiction`, the same task on the
+implicit-stiction plant.
 """
 from legged_gym_custom_tpu_torch import LEGGED_GYM_RESOURCES_DIR
 from .base_config import LeggedRobotCfg, LeggedRobotCfgPPO
@@ -190,3 +191,17 @@ class Go2CfgPPO(LeggedRobotCfgPPO):
         run_name = "go2_base_policy"
         experiment_name = "go2"
         resume = False
+
+
+class Go2StictionCfg(Go2Cfg):
+    """Flat go2 on the implicit-stiction plant: frictionloss as a
+    velocity-space Coulomb clamp with true holding torque at rest (engine
+    `frictionloss_implicit`) instead of the tanh surrogate."""
+
+    class sim(Go2Cfg.sim):
+        joint_frictionloss_implicit = True
+
+
+class Go2StictionCfgPPO(Go2CfgPPO):
+    class runner(Go2CfgPPO.runner):
+        run_name = "go2_stiction"

@@ -1,13 +1,24 @@
-// Fused control step for Hopper (sm_90a): K1 and K3 of the port.
+// Fused control step for Hopper (sm_90a): K1, K2 and K3 of the port.
 //
 // Replaces the Pallas TPU kernel legged_gym_custom_tpu/ops/fused_step.py::
 // _build_fused (pallas_call :824; body control_step_components :667 ->
-// _substep_components :398) with control type 'P', tanh frictionloss, joint
-// damping and armature, in two variants chosen at build time by LGC_HF_K:
+// _substep_components :398) with joint damping and armature.  The reference
+// specialises at trace time on its spec; here the generated header chooses
+// the variant at build time:
 //   K1 (LGC_HF_K == 0): penalty contact against the z = 0 plane;
 //   K3 (LGC_HF_K > 0):  penalty contact against a bilinear surface read from
 //       each env's (K, K) window of the height table (reference
-//       _tile_surface :352-395, contact :479-491).
+//       _tile_surface :352-395, contact :479-491);
+//   K2, two options on either of them:
+//       LGC_CONTROL_T: the torque is the scaled action (reference :690-691)
+//           instead of the PD law; kp/kd/default angles go unused;
+//       LGC_FL_IMPLICIT: implicit stiction (reference :524-527, :633-635).
+//           The tanh frictionloss torque is dropped and, after the
+//           integration and before the velocity limit, each joint sheds up
+//           to FL_DQD[j] = frictionloss * dt_sub / m_eff of velocity toward
+//           zero, so a joint inside the dead zone ends at exactly 0.  The
+//           12 clamps are compile-time immediates (the float32 values the
+//           plain version uses), so K2 moves the same bytes as K1 / K3.
 //
 // One thread per env runs a whole 50 Hz control step: decimation ticks of
 // clipped PD torques, each followed by `substeps` semi-implicit Euler
@@ -77,11 +88,13 @@ constexpr int BLOCK = 32;
   constexpr float DOF_LO[NDOF] = LGC_DOF_LO;                      \
   constexpr float DOF_HI[NDOF] = LGC_DOF_HI;                      \
   constexpr float DOF_VLIM[NDOF] = LGC_DOF_VLIM;                  \
+  constexpr float FL_DQD[NDOF] = LGC_FL_DQD;                      \
   (void)PARENT; (void)JROT; (void)JPOS; (void)JAXIS; (void)MASS;  \
   (void)COM; (void)ICOM; (void)GBODY; (void)GPOS; (void)GRAD;     \
   (void)GLINK; (void)GRAV; (void)JD_DAMP; (void)JD_ARM;           \
   (void)JD_FL; (void)P_GAINS; (void)D_GAINS; (void)DEFAULT_POS;   \
-  (void)TLIM; (void)DOF_LO; (void)DOF_HI; (void)DOF_VLIM;
+  (void)TLIM; (void)DOF_LO; (void)DOF_HI; (void)DOF_VLIM;         \
+  (void)FL_DQD;
 
 // ---------------------------------------------------------------------------
 // 3-vectors, row-major 3x3 matrices, spatial 6-vectors [angular; linear]
@@ -419,7 +432,11 @@ __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, flo
     const bool viol = (below < 0.f) || (above > 0.f);
     float t = tau[j] + (-LGC_JL_STIFFNESS * (below + above) - (viol ? LGC_JL_DAMPING * qd[j] : 0.f));
     if (JD_DAMP[j] != 0.f) t = t - JD_DAMP[j] * qd[j];
+#if !LGC_FL_IMPLICIT
+    // tanh surrogate; implicit stiction clamps the velocity after the
+    // integration instead
     if (JD_FL[j] != 0.f) t = t - JD_FL[j] * tanhf(qd[j] * LGC_INV_FL_EPS);
+#endif
     tau_total[j] = t;
   }
 
@@ -594,6 +611,9 @@ __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, flo
 #pragma unroll
   for (int j = 0; j < NDOF; ++j) {
     float vj = qd[j] + qdd[j] * dt;
+#if LGC_FL_IMPLICIT
+    vj -= fminf(fmaxf(vj, -FL_DQD[j]), FL_DQD[j]);
+#endif
 #if LGC_DOF_VEL_CLAMP
     vj = fminf(fmaxf(vj, -DOF_VLIM[j]), DOF_VLIM[j]);
 #endif
@@ -640,6 +660,9 @@ fused_control_step_kernel(const float* __restrict__ pos_in, const float* __restr
     kp[j] = kp_in[j * B + n] * P_GAINS[j];
     kd[j] = kd_in[j * B + n] * D_GAINS[j];
   }
+#if LGC_CONTROL_T
+  (void)kp; (void)kd;
+#endif
   const float mu = 0.5f * (fric_in[n] + LGC_TERRAIN_FRICTION);
 
   // randomized base inertia (reference _body_inertias_components)
@@ -679,7 +702,11 @@ fused_control_step_kernel(const float* __restrict__ pos_in, const float* __restr
   for (int tick = 0; tick < LGC_DECIMATION; ++tick) {
 #pragma unroll
     for (int j = 0; j < NDOF; ++j) {
+#if LGC_CONTROL_T
+      const float t = act[j] * LGC_ACTION_SCALE;
+#else
       const float t = kp[j] * (act[j] * LGC_ACTION_SCALE + DEFAULT_POS[j] - q[j]) - kd[j] * qd[j];
+#endif
       tau[j] = fminf(fmaxf(t, -TLIM[j]), TLIM[j]);
     }
 #pragma unroll

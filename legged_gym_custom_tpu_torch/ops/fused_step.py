@@ -2,14 +2,19 @@
 (ops/csrc/fused_step.cu) and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel `legged_gym_custom_tpu/ops/fused_step.py::
-_build_fused` (pallas_call at :824, body `control_step_components` :667) in
-two of its variants, control type 'P' with tanh frictionloss, joint damping
-and armature:
+_build_fused` (pallas_call at :824, body `control_step_components` :667),
+with joint damping and armature, in all the variants the reference
+specialises at trace time and this port at build time:
   * K1, the plane variant (`hf_K == 0`): penalty contact against z = 0;
   * K3, the heightfield variant (`hf_K > 0`): contact against a per-env
     bilinear surface read from a (K, K) window of the height table
     (physics/patch.py), sampled at the first substep of each decimation
-    tick and held through its substeps (reference `_tile_surface` :352).
+    tick and held through its substeps (reference `_tile_surface` :352);
+  * K2, two options on either of them: control type 'T' (direct scaled
+    torques, reference :690-691) in place of 'P', and implicit stiction
+    (reference :524-527, :633-635): the tanh frictionloss torque is dropped
+    and after the integration each joint sheds up to `fl_dqd` of velocity
+    toward zero, which holds a joint at rest exactly.
 One launch runs a whole 50 Hz control step, decimation x substeps of PD
 torques, forward kinematics, penalty contact, joint-limit and passive
 torques, ABA with armature and semi-implicit Euler, one thread per env with
@@ -26,7 +31,7 @@ plain C interface, loaded with ctypes and cached per spec.
 `fused_control_step` is the wrapper: for CPU tensors it runs
 `control_step_components`, the plain version, and for CUDA tensors it
 launches the kernel or raises.  A configuration the kernel does not cover
-('V'/'T' control and implicit stiction, the K2 options) raises
+('V' control, which needs the previous step's joint velocities) raises
 NotImplementedError naming the missing variant on either device.
 """
 from __future__ import annotations
@@ -121,10 +126,6 @@ def build_spec(ma, params, pd, dof_limits, hf_K: int = 0, hf_hs: float = 0.0) ->
     size in meters."""
     c = params.contact
     ndof = len(ma.parent) - 1
-    if params.frictionloss_implicit:
-        raise NotImplementedError(
-            "implicit stiction (K2 option of the fused kernel) is not ported yet"
-        )
     if hf_K and not params.terrain_tick_sample:
         raise NotImplementedError(
             "terrain_tick_sample=False: the heightfield kernel (K3) samples the surface once "
@@ -133,6 +134,16 @@ def build_spec(ma, params, pd, dof_limits, hf_K: int = 0, hf_hs: float = 0.0) ->
 
     def per_dof(x):
         return _t(x) if x is not None else (0.0,) * ndof
+
+    # implicit stiction: the per-substep velocity clamp fl * dt_sub / meff in
+    # host numpy float32, the arithmetic (and so the bits) of the reference
+    # (fused_step.py:324-328); the kernel's header and the plain version are
+    # both given this value
+    fl_dqd = ()
+    if (params.frictionloss_implicit and params.dof_frictionloss is not None
+            and params.dof_meff is not None):
+        fl_dqd = _t(_np(params.dof_frictionloss) * (params.dt / params.substeps)
+                    / _np(params.dof_meff))
 
     return FusedSpec(
         hf_K=int(hf_K),
@@ -170,6 +181,7 @@ def build_spec(ma, params, pd, dof_limits, hf_K: int = 0, hf_hs: float = 0.0) ->
         torque_limits=_t(pd.torque_limits),
         action_scale=float(pd.action_scale),
         control_type=str(pd.control_type),
+        fl_dqd=fl_dqd,
         dof_lo=_t(dof_limits[0]),
         dof_hi=_t(dof_limits[1]),
         dof_vlim=_t(dof_limits[2]),
@@ -177,16 +189,18 @@ def build_spec(ma, params, pd, dof_limits, hf_K: int = 0, hf_hs: float = 0.0) ->
 
 
 def check_covered(spec: FusedSpec):
-    """Raise NotImplementedError for a spec outside the ported variants: K1
-    on the plane and K3 on a heightfield, both with 'P' control."""
+    """Raise NotImplementedError for a spec outside the kernel's variants:
+    the plane or a heightfield, 'P' or 'T' control, tanh or implicit
+    frictionloss.  'V' control has no variant."""
     where = " on a heightfield" if spec.hf_K else ""
-    if spec.control_type != "P":
+    if spec.control_type not in ("P", "T"):
         raise NotImplementedError(
-            f"control_type {spec.control_type!r}{where}: the fused kernel ports 'P' only "
-            "('T' is the K2 option, not ported yet)"
+            f"control_type {spec.control_type!r}{where}: the fused kernel covers 'P' and 'T' "
+            "('V' needs the previous step's joint velocities, which it does not carry)"
         )
-    if spec.fl_dqd:
-        raise NotImplementedError(f"implicit stiction{where} (K2 option) is not ported yet")
+    ndof = len(spec.parent) - 1
+    if spec.fl_dqd and len(spec.fl_dqd) != ndof:
+        raise ValueError(f"fl_dqd needs {ndof} entries, got {len(spec.fl_dqd)}")
     if spec.hf_K and (spec.hf_K < 2 or spec.hf_hs <= 0.0):
         raise ValueError(f"heightfield spec needs hf_K >= 2 and hf_hs > 0, got "
                          f"{spec.hf_K}, {spec.hf_hs}")
@@ -497,7 +511,8 @@ def _substep_components(spec: FusedSpec, st, tau, friction, inertias, terrain=No
             lf = link_force[spec.geom_link[g]]
             lf[k] = _add(lf[k], force[k])
 
-    # joint-limit torque + passive joint dynamics (viscous + tanh Coulomb)
+    # joint-limit torque + passive joint dynamics (viscous + tanh Coulomb;
+    # implicit stiction clamps the velocity after the integration instead)
     tau_total = []
     for j in range(ndof):
         qj = st["q"][j]
@@ -510,7 +525,7 @@ def _substep_components(spec: FusedSpec, st, tau, friction, inertias, terrain=No
         t = tau[j] + tjl
         if spec.jd_damping[j] != 0.0:
             t = t - spec.jd_damping[j] * qdj
-        if spec.jd_frictionloss[j] != 0.0:
+        if spec.jd_frictionloss[j] != 0.0 and not spec.fl_dqd:
             t = t - spec.jd_frictionloss[j] * torch.tanh(qdj * (1.0 / spec.fl_eps))
         tau_total.append(t)
 
@@ -599,6 +614,9 @@ def _substep_components(spec: FusedSpec, st, tau, friction, inertias, terrain=No
     qd_new, q_new = [], []
     for j in range(ndof):
         qd = st["qd"][j] + qdd[j] * dt
+        if spec.fl_dqd:
+            # implicit Coulomb stiction, before the velocity limit
+            qd = qd - torch.clamp(qd, -spec.fl_dqd[j], spec.fl_dqd[j])
         if spec.dof_vel_clamp:
             qd = torch.clamp(qd, -spec.dof_vlim[j], spec.dof_vlim[j])
         qd_new.append(qd)
@@ -646,10 +664,13 @@ def control_step_components(spec: FusedSpec, st, actions, friction, added_mass, 
     for _tick in range(spec.decimation):
         tau = []
         for j in range(ndof):
-            kp = kp_mult[j] * spec.p_gains[j]
-            kd = kd_mult[j] * spec.d_gains[j]
-            t = kp * (actions[j] * spec.action_scale + spec.default_dof_pos[j] - st["q"][j]) \
-                - kd * st["qd"][j]
+            if spec.control_type == "T":
+                t = actions[j] * spec.action_scale
+            else:
+                kp = kp_mult[j] * spec.p_gains[j]
+                kd = kd_mult[j] * spec.d_gains[j]
+                t = kp * (actions[j] * spec.action_scale + spec.default_dof_pos[j]
+                          - st["q"][j]) - kd * st["qd"][j]
             tau.append(torch.clamp(t, -spec.torque_limits[j], spec.torque_limits[j]))
         lf_sum = [[0.0] * 3 for _ in range(nl)]
         surface = None  # sampled at the tick's first substep (terrain_tick_sample)
@@ -747,6 +768,11 @@ def spec_header(spec: FusedSpec) -> str:
         f"#define LGC_HF_K {spec.hf_K}",
         f"#define LGC_HF_INV_HS {_flist([1.0 / spec.hf_hs if spec.hf_K else 0.0])[1:-1]}",
         f"#define LGC_HF_GMAX {_flist([spec.hf_K - 1.001 if spec.hf_K else 0.0])[1:-1]}",
+        # K2 options: direct torque control; implicit stiction and its
+        # per-substep velocity clamp (zeros when off)
+        f"#define LGC_CONTROL_T {1 if spec.control_type == 'T' else 0}",
+        f"#define LGC_FL_IMPLICIT {1 if spec.fl_dqd else 0}",
+        f"#define LGC_FL_DQD {_flist(spec.fl_dqd or (0.0,) * (nb - 1))}",
     ]
     return "\n".join(lines) + "\n"
 
@@ -908,8 +934,8 @@ def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
     Returns ((pos, quat, lin, ang, q, qd), link_forces (nl,3,B), torques (ndof,B)).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream (adding one to `fused_control_step.launches`, or to
-    `fused_control_step.hf_launches` for the heightfield variant) or raise.
+    current stream, adding one to the variant's counter (`launch_counts`), or
+    raise.
     """
     check_covered(spec)
     B, device = _check_inputs(spec, state, actions, dr, terrain)
@@ -935,7 +961,10 @@ def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
             "fused control-step kernel launch failed: "
             + kernel.lib.lgc_cuda_error_string(err).decode()
         )
-    if spec.hf_K:
+    if spec.control_type == "T" or spec.fl_dqd:
+        name = variant_name(spec)
+        fused_control_step.k2_launches[name] = fused_control_step.k2_launches.get(name, 0) + 1
+    elif spec.hf_K:
         fused_control_step.hf_launches += 1
     else:
         fused_control_step.launches += 1
@@ -945,3 +974,25 @@ def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
 
 fused_control_step.launches = 0      # K1, the plane variant
 fused_control_step.hf_launches = 0   # K3, the heightfield variant
+fused_control_step.k2_launches = {}  # K2: `variant_name` -> launches
+
+
+def variant_name(spec: FusedSpec) -> str:
+    """The build-time variant of a spec: `fused_control_step` (K1), with
+    `_T` for torque control, `_stiction` for implicit stiction (K2) and `_hf`
+    on a heightfield (K3)."""
+    return ("fused_control_step" + ("_T" if spec.control_type == "T" else "")
+            + ("_stiction" if spec.fl_dqd else "") + ("_hf" if spec.hf_K else ""))
+
+
+def launch_counts() -> dict:
+    """Launches so far of every variant that has a counter, by `variant_name`."""
+    return {"fused_control_step": fused_control_step.launches,
+            "fused_control_step_hf": fused_control_step.hf_launches,
+            **fused_control_step.k2_launches}
+
+
+def reset_launch_counts() -> None:
+    fused_control_step.launches = 0
+    fused_control_step.hf_launches = 0
+    fused_control_step.k2_launches = {}

@@ -1,6 +1,15 @@
 """Batched Featherstone physics in PyTorch (port of legged_gym_custom_tpu/physics)."""
 from .actuator import PDParams, compute_torques
-from .algorithms import ModelArrays, aba, body_inertias, forward_kinematics, joint_transforms, model_arrays
+from .algorithms import (
+    ModelArrays,
+    aba,
+    body_inertias,
+    crba,
+    forward_kinematics,
+    joint_transforms,
+    model_arrays,
+    rnea,
+)
 from .contact import ContactParams, compute_contacts, geom_centers, sample_surface
 from .engine import (
     DomainRandParams,
@@ -9,6 +18,7 @@ from .engine import (
     StepInfo,
     control_step,
     eager_control_step,
+    effective_joint_inertia,
     link_states,
     patch_K,
     substep,

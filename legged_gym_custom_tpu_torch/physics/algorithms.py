@@ -1,6 +1,5 @@
-"""Featherstone forward kinematics and the articulated-body algorithm, torch
-port of legged_gym_custom_tpu/physics/algorithms.py (ABA only; RNEA/CRBA are
-not on the flat go2 path).
+"""Featherstone forward kinematics and the articulated rigid-body algorithms
+(RNEA / CRBA / ABA), torch port of legged_gym_custom_tpu/physics/algorithms.py.
 
 Layout is component-major with a trailing batch (physics/soa.py): quats
 (4,)+bs, vectors (3,)+bs / (6,)+bs, matrices (6,6)+bs.  The tree loops unroll
@@ -66,16 +65,18 @@ def model_arrays(model: RobotModel, device="cpu", dtype=torch.float32) -> ModelA
     )
 
 
-def body_inertias(m: ModelArrays, added_mass, com_offset):
+def body_inertias(m: ModelArrays, added_mass=None, com_offset=None):
     """Per-body [(m ()+bs, h (3,)+bs, I (3,3)+bs)] with base-body domain rand
-    (added_mass ()+bs, com_offset (3,)+bs)."""
-    bs = tuple(added_mass.shape)
+    (added_mass ()+bs, com_offset (3,)+bs; both None gives the unbatched
+    nominal model)."""
+    bs = () if added_mass is None else tuple(added_mass.shape)
     out = []
     for i in range(m.nb):
         mass_i = m.mass[i].expand(bs)
         com_i = soa.bcast(m.com[i], bs).expand((3,) + bs)
-        if i == 0:
+        if i == 0 and added_mass is not None:
             mass_i = mass_i + added_mass
+        if i == 0 and com_offset is not None:
             com_i = com_i + com_offset
         h = mass_i * com_i
         cx = soa.hat(com_i)
@@ -125,6 +126,89 @@ def forward_kinematics(m: ModelArrays, base_quat, base_pos, dof_pos, v_base, dof
         v.append(vi + _S(m, i, bs) * dof_vel[i - 1])
     p0w = [base_pos + q for q in p0]
     return E_up, p_up, E0, p0w, v
+
+
+def rnea(m, inertias, base_quat, dof_pos, v_base, dof_vel, qdd_base, qdd, f_ext=None,
+         gravity=(0.0, 0.0, -9.81), armature=None):
+    """Inverse dynamics: generalized forces producing given accelerations.
+
+    Gravity enters via the fictitious base acceleration (Featherstone RBDA
+    5.3).  Returns (f0 (6,)+bs base wrench in base coords, tau (ndof,)+bs);
+    with qdd = 0 this is the bias force.  `armature` ((ndof,) or None) adds
+    reflected rotor inertia in joint space: tau_i += armature_i * qdd_i.
+    """
+    nb = m.nb
+    bs = tuple(base_quat.shape[1:])
+    dtype, device = dof_pos.dtype, dof_pos.device
+    E_up, p_up, E0, _ = joint_transforms(m, base_quat, dof_pos)
+    g = soa.bcast(torch.tensor(gravity, dtype=dtype, device=device), bs)
+    zero3 = torch.zeros((3,) + bs, dtype=dtype, device=device)
+
+    v = [v_base]
+    a = [soa.sv(zero3, -soa.mv(E0[0], g * torch.ones_like(zero3))) + qdd_base]
+    for i in range(1, nb):
+        p = m.parent[i]
+        S = _S(m, i, bs)
+        vJ = S * dof_vel[i - 1]
+        vi = soa.xform_motion(E_up[i], p_up[i], v[p]) + vJ
+        a.append(soa.xform_motion(E_up[i], p_up[i], a[p]) + S * qdd[i - 1] + soa.crm(vi, vJ))
+        v.append(vi)
+    f = []
+    for i in range(nb):
+        mass_i, h_i, I_i = inertias[i]
+        Iv = soa.inertia_mul(mass_i, h_i, I_i, v[i])
+        fi = soa.inertia_mul(mass_i, h_i, I_i, a[i]) + soa.crf(v[i], Iv)
+        if f_ext is not None:
+            fi = fi - soa.sv(soa.mv(E0[i], f_ext[i][0:3]), soa.mv(E0[i], f_ext[i][3:6]))
+        f.append(fi)
+    tau = [None] * (nb - 1)
+    for i in range(nb - 1, 0, -1):
+        tau[i - 1] = soa.dot(_S(m, i, bs) * torch.ones_like(f[i]), f[i])
+        if armature is not None:
+            tau[i - 1] = tau[i - 1] + armature[i - 1] * qdd[i - 1]
+        p = m.parent[i]
+        f[p] = f[p] + soa.inv_xform_force(E_up[i], p_up[i], f[i])
+    return f[0], torch.stack(tau)
+
+
+def crba(m, inertias, base_quat, dof_pos, armature=None):
+    """Composite rigid-body algorithm: mass matrix (nv, nv)+bs.
+
+    Row/col order: [base 6 dof (ang, lin in base coords); joints].
+    `armature` adds reflected rotor inertia on each joint diagonal.
+    """
+    nb = m.nb
+    bs = tuple(base_quat.shape[1:])
+    dtype, device = dof_pos.dtype, dof_pos.device
+    E_up, p_up, _, _ = joint_transforms(m, base_quat, dof_pos)
+    Ic = [soa.inertia_to_mat66(*inertias[i]) for i in range(nb)]
+    X = [None] + [soa.xform_to_mat66(E_up[i], p_up[i]) for i in range(1, nb)]
+    for i in range(nb - 1, 0, -1):
+        p = m.parent[i]
+        Ic[p] = Ic[p] + soa.mtm(X[i], soa.mm(Ic[i], X[i]))
+    nv = 6 + nb - 1
+    ones6 = torch.ones((6,) + bs, dtype=dtype, device=device)
+    # filled by index assignment into a fresh tensor (the reference's .at[].set)
+    H = torch.zeros((nv, nv) + bs, dtype=dtype, device=device)
+    H[0:6, 0:6] = Ic[0]
+    for i in range(1, nb):
+        S = _S(m, i, bs) * ones6
+        F = soa.mv(Ic[i], S)
+        d_ii = soa.dot(S, F)
+        if armature is not None:
+            d_ii = d_ii + armature[i - 1]
+        H[6 + i - 1, 6 + i - 1] = d_ii
+        j = i
+        while m.parent[j] > 0:
+            F = soa.mtv(X[j], F)
+            j = m.parent[j]
+            val = soa.dot(_S(m, j, bs) * ones6, F)
+            H[6 + i - 1, 6 + j - 1] = val
+            H[6 + j - 1, 6 + i - 1] = val
+        F = soa.mtv(X[j], F)
+        H[6 + i - 1, 0:6] = F
+        H[0:6, 6 + i - 1] = F
+    return H
 
 
 def aba(m, inertias, base_quat, dof_pos, v_base, dof_vel, tau, f_ext=None,

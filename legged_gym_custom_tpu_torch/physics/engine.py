@@ -23,11 +23,12 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import soa
 from .actuator import PDParams, compute_torques
-from .algorithms import ModelArrays, aba, body_inertias, forward_kinematics
+from .algorithms import ModelArrays, aba, body_inertias, crba, forward_kinematics
 from . import patch
 from .contact import ContactParams, compute_contacts, geom_centers, sample_surface
 from .heightfield import Heightfield
@@ -63,8 +64,14 @@ class SimParams(NamedTuple):
     dof_armature: Optional[torch.Tensor] = None      # reflected rotor inertia
     dof_frictionloss: Optional[torch.Tensor] = None  # Coulomb: -fl * tanh(qd/eps)
     frictionloss_vel_eps: float = 0.1
-    # implicit stiction (velocity-space Coulomb clamp) is not ported yet
+    # True stiction: resolve frictionloss as an implicit velocity-space
+    # Coulomb clamp instead of the tanh torque.  After integrating the
+    # unconstrained velocity each joint sheds up to fl * dt / m_eff of
+    # velocity toward zero, the discrete form of a friction torque bounded
+    # by +-fl that can hold a joint exactly at rest.  `dof_meff` is the
+    # per-joint effective inertia (`effective_joint_inertia`).
     frictionloss_implicit: bool = False
+    dof_meff: Optional[torch.Tensor] = None          # (ndof,) [kg m^2]
     # Sample the terrain under each sphere once per decimation tick and hold
     # it through the substeps (the reference plant's collision cadence,
     # legged_robot.py:79-85); False resamples at every substep.  No effect
@@ -106,19 +113,32 @@ def _joint_limit_torque(params: SimParams, limits_lo, limits_hi, dof_pos, dof_ve
 
 
 def _joint_passive_torque(params: SimParams, dof_vel):
-    """Viscous damping + tanh-smoothed Coulomb friction at the joints."""
-    if params.frictionloss_implicit:
-        raise NotImplementedError("implicit stiction (frictionloss_implicit) is not ported")
+    """Viscous damping + tanh-smoothed Coulomb friction at the joints; in
+    implicit mode the friction is the velocity clamp in `substep` instead."""
     bs = tuple(dof_vel.shape[1:])
     tau = None
     if params.dof_damping is not None:
         tau = -soa.bcast(params.dof_damping, bs) * dof_vel
-    if params.dof_frictionloss is not None:
+    if params.dof_frictionloss is not None and not params.frictionloss_implicit:
         fric = -soa.bcast(params.dof_frictionloss, bs) * torch.tanh(
             dof_vel / params.frictionloss_vel_eps
         )
         tau = fric if tau is None else tau + fric
     return tau
+
+
+def effective_joint_inertia(ma: ModelArrays, dof_pos0, armature=None):
+    """Per-joint apparent inertia 1 / (M^-1)_jj at a reference pose
+    (unbatched, in the model's dtype; the angles are rounded to float32
+    first, as the reference does), floating base included: the inertia a
+    joint torque works against when the base and the other joints are free,
+    so the implicit friction clamp fl * dt / m_eff absorbs exactly the
+    velocity a sub-threshold torque injects."""
+    dtype, device = ma.mass.dtype, ma.mass.device
+    quat0 = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    q0 = torch.as_tensor(np.asarray(dof_pos0, np.float32), device=device).to(dtype)
+    H = crba(ma, body_inertias(ma), quat0, q0, armature=armature)
+    return 1.0 / torch.diagonal(torch.linalg.inv(H))[6:]
 
 
 def substep(ma: ModelArrays, hf, params: SimParams, dr: DomainRandParams,
@@ -152,6 +172,12 @@ def substep(ma: ModelArrays, hf, params: SimParams, dr: DomainRandParams,
     base_pos = state.base_pos + lin_vel * dt
     base_quat = soa.quat_integrate(state.base_quat, w_b, dt)
     dof_vel = state.dof_vel + qdd * dt
+    if (params.dof_frictionloss is not None and params.frictionloss_implicit
+            and params.dof_meff is not None):
+        # implicit Coulomb clamp: shed up to fl * dt / m_eff toward zero
+        dqd_max = soa.bcast(params.dof_frictionloss * dt / params.dof_meff,
+                            tuple(dof_vel.shape[1:]))
+        dof_vel = dof_vel - torch.maximum(torch.minimum(dof_vel, dqd_max), -dqd_max)
     if params.dof_vel_clamp:
         vlim = soa.bcast(dof_limits[2], tuple(dof_vel.shape[1:]))
         dof_vel = torch.maximum(torch.minimum(dof_vel, vlim), -vlim)

@@ -42,15 +42,15 @@ class PPOConfig(NamedTuple):
     gamma: float = 0.99
     lam: float = 0.95
     max_action_std: float = 1.0
-    # ROA schedule (reference ppo.py:41-43)
+    # ROA schedule (reference ppo.py:41-43); resume flips to flat 0.1
     roa_start_val: float = 0.0
     roa_end_val: float = 0.05
     roa_start_step: float = 5000.0
     roa_duration: float = 10000.0
 
     @staticmethod
-    def from_cfg(alg_cfg) -> "PPOConfig":
-        return PPOConfig(
+    def from_cfg(alg_cfg, resume: bool = False) -> "PPOConfig":
+        base = PPOConfig(
             clip_param=alg_cfg.clip_param,
             num_learning_epochs=alg_cfg.num_learning_epochs,
             num_mini_batches=alg_cfg.num_mini_batches,
@@ -66,6 +66,10 @@ class PPOConfig(NamedTuple):
             gamma=alg_cfg.gamma,
             lam=alg_cfg.lam,
         )
+        if resume:
+            base = base._replace(
+                roa_start_val=0.0, roa_end_val=0.1, roa_start_step=0.0, roa_duration=1.0)
+        return base
 
 
 POLICY_GROUP = ("actor", "critic", "priv_encoder", "scan_encoder", "std")

@@ -9,7 +9,9 @@ so the console block reports the reference's collection/learning split.
 
 Episode bookkeeping stays on the device as per-env sums; the host reads the
 iteration's scalars once.  Checkpoints hold the parameters and all three
-optimizer states (utils/checkpoint.py).  Single device: the mesh and
+optimizer states (utils/checkpoint.py); `load` restores them, and
+`get_inference_policy` gives the deterministic (or sampling) policy that
+`scripts/play.py` rolls out.  Single device: the mesh and
 sharding of the JAX runner come with a later slice.
 """
 from __future__ import annotations
@@ -80,7 +82,7 @@ class OnPolicyRunner:
             history_buffer_length=ecfg.history_buffer_length,
             generator=init_gen,
         ).to(self.device)
-        self.ppo_cfg = PPOConfig.from_cfg(self.alg_cfg)
+        self.ppo_cfg = PPOConfig.from_cfg(self.alg_cfg, resume=self.cfg.resume)
         self.train_state = ppo_lib.TrainState(self.nets, self.ppo_cfg)
         self.dagger_update_freq = self.alg_cfg.dagger_update_freq
         self.num_steps_per_env = self.cfg.num_steps_per_env
@@ -268,3 +270,47 @@ class OnPolicyRunner:
         on_policy_runner.py:283-288)."""
         checkpoint_lib.save_checkpoint(path, self.train_state, self.current_learning_iteration,
                                        infos)
+
+    def load(self, path, load_optimizer=True):
+        """Restore a checkpoint written by `save`: the parameters and, with
+        `load_optimizer`, the three optimizer states, the learning rate and
+        the update count; always the iteration.  Returns the saved `infos`."""
+        payload = checkpoint_lib.load_checkpoint(path, map_location=self.device)
+        ts = self.train_state
+        self.nets.load_state_dict(payload["model_state_dict"])
+        if load_optimizer:
+            ts.opt_policy.load_state_dict(payload["optimizer_policy"])
+            ts.opt_adapt.load_state_dict(payload["optimizer_adapt"])
+            ts.opt_est.load_state_dict(payload["optimizer_est"])
+            ts.learning_rate = float(payload["learning_rate"])
+            ts.total_updates = float(payload["total_updates"])
+        self.current_learning_iteration = payload["iter"]
+        return payload.get("infos")
+
+    def get_inference_policy(self, stochastic: bool = False):
+        """Deterministic (or sampling) policy over the 5 obs streams
+        (reference on_policy_runner.py:299-309): the estimator, then
+        `action_mean`, with the adaptation encoder by default.
+
+        stochastic=True returns a function with an extra `generator`
+        argument (a `torch.Generator` on the policy's device) that samples
+        mean + std * N(0, 1), the rollout-time behaviour.
+        """
+        nets = self.nets
+
+        @torch.no_grad()
+        def act_inference(obs5, adaptation_mode: bool = True):
+            estimated = nets.estimate(obs5.obs)
+            return nets.action_mean(obs5.obs, obs5.privileged, estimated, obs5.scan,
+                                    adaptation_mode)
+
+        if not stochastic:
+            return act_inference
+
+        @torch.no_grad()
+        def act_sample(obs5, generator: torch.Generator, adaptation_mode: bool = True):
+            mean = act_inference(obs5, adaptation_mode)
+            noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+            return mean + nets.std * noise
+
+        return act_sample

@@ -2,6 +2,10 @@
 
 Usage: python -m legged_gym_custom_tpu_torch.scripts.train --task go2
        [--num_envs N] [--max_iterations M] [--seed S] [--device cuda|cpu]
+       [--resume] [--load_run R] [--checkpoint C]
+
+`--resume` loads the newest checkpoint of the newest run of the experiment
+(or the one `--load_run` / `--checkpoint` name) and goes on from its iteration.
 
 Runs on the GPU unless `--device cpu` is given; with no GPU it raises
 rather than falling back to the CPU.
@@ -22,6 +26,8 @@ def get_args(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--experiment_name", default=None)
     p.add_argument("--run_name", default=None)
+    p.add_argument("--load_run", default=None)
+    p.add_argument("--checkpoint", type=int, default=None)
     p.add_argument("--num_envs", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--max_iterations", type=int, default=None)

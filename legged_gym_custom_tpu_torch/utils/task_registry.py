@@ -1,8 +1,8 @@
 """Task registry, torch port of legged_gym_custom_tpu/utils/task_registry.py.
 
 Maps task name -> (env class, env cfg class, train cfg class) and builds
-envs/runners with CLI overrides applied.  Resume/load waits for a later
-slice.
+envs/runners with CLI overrides applied; with `runner.resume` the runner
+loads the checkpoint `get_load_path` picks.
 """
 from __future__ import annotations
 
@@ -52,14 +52,41 @@ class TaskRegistry:
             _, train_cfg = self.get_cfgs(name)
         if args is not None:
             update_cfg_from_args(None, train_cfg, args)
-        if train_cfg.runner.resume:
-            raise NotImplementedError("resuming a run is not ported yet")
         if log_root == "default":
             log_root = os.path.join(LEGGED_GYM_TORCH_ROOT_DIR, "logs",
                                     train_cfg.runner.experiment_name)
         log_dir = None if log_root is None else os.path.join(
             log_root, datetime.now().strftime("%b%d_%H-%M-%S") + "_" + train_cfg.runner.run_name)
-        return OnPolicyRunner(env, train_cfg, log_dir=log_dir), train_cfg
+        runner = OnPolicyRunner(env, train_cfg, log_dir=log_dir)
+        if train_cfg.runner.resume:
+            if log_root is None:
+                raise ValueError("resume needs a log_root to look for runs in")
+            resume_path = get_load_path(log_root, load_run=train_cfg.runner.load_run,
+                                        checkpoint=train_cfg.runner.checkpoint)
+            print(f"Loading model from: {resume_path}", flush=True)
+            runner.load(resume_path)
+        return runner, train_cfg
+
+
+def get_load_path(root, load_run=-1, checkpoint=-1):
+    """Latest-run / latest-checkpoint resolution (reference helpers.py:103-125):
+    the last run directory of `root` by name, skipping `exported`, and in it
+    the highest `model_*` (this package's checkpoints end in `.pt`)."""
+    try:
+        runs = sorted(os.listdir(root))
+        if "exported" in runs:
+            runs.remove("exported")
+        last_run = os.path.join(root, runs[-1])
+    except Exception:
+        raise ValueError(f"No runs in this directory: {root}")
+    load_run = last_run if load_run == -1 else os.path.join(root, load_run)
+    if checkpoint == -1:
+        models = [f for f in os.listdir(load_run) if "model" in f and not f.endswith(".tmp")]
+        models.sort(key=lambda m: f"{m:0>15}")
+        model = models[-1]
+    else:
+        model = f"model_{checkpoint}.pt"
+    return os.path.join(load_run, model)
 
 
 def update_cfg_from_args(env_cfg, cfg_train, args):
@@ -78,6 +105,10 @@ def update_cfg_from_args(env_cfg, cfg_train, args):
             cfg_train.runner.experiment_name = args.experiment_name
         if getattr(args, "run_name", None) is not None:
             cfg_train.runner.run_name = args.run_name
+        if getattr(args, "load_run", None) is not None:
+            cfg_train.runner.load_run = args.load_run
+        if getattr(args, "checkpoint", None) is not None:
+            cfg_train.runner.checkpoint = args.checkpoint
 
 
 task_registry = TaskRegistry()

@@ -94,8 +94,8 @@ def test_engine_on_card_runs_the_kernel_and_matches_eager(go2_env):
 def test_wrapper_raises_on_the_card_for_what_the_kernel_does_not_take(go2_env):
     spec = go2_env.fused_spec
     state, actions, dr = _batch(2)
-    with pytest.raises(NotImplementedError):
-        fused_step.fused_control_step(spec._replace(control_type="T"), state, actions, dr)
+    with pytest.raises(NotImplementedError, match="'V'"):
+        fused_step.fused_control_step(spec._replace(control_type="V"), state, actions, dr)
     with pytest.raises(ValueError):
         fused_step.fused_control_step(spec, state, actions.t().contiguous().t(), dr)
     with pytest.raises(ValueError):
@@ -173,7 +173,105 @@ def test_engine_on_card_raises_for_uncovered_heightfield_variants(parkour_env):
                    env.sim_params._replace(terrain_tick_sample=False)):
         with pytest.raises(NotImplementedError):
             tphys.control_step(*base[:2], params, *base[3:], spec=env.fused_spec)
-    with pytest.raises(NotImplementedError):
-        tphys.control_step(*base, spec=env.fused_spec._replace(control_type="T"))
+    with pytest.raises(NotImplementedError, match="'V'"):
+        tphys.control_step(*base, spec=env.fused_spec._replace(control_type="V"))
     with pytest.raises(NotImplementedError):   # no window for a heightfield spec
         fused_step.fused_control_step(env.fused_spec, state, actions, dr)
+
+
+def _rest_quarter(spec, state, actions, seed):
+    """A random quarter of the (joint, env) entries at rest: zero velocity
+    and, under 'P' control, the action whose target is the current angle."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rest = torch.rand(actions.shape, generator=gen, device="cuda") < 0.25
+    default = torch.tensor(spec.default_dof_pos, dtype=torch.float32, device="cuda")
+    qd = torch.where(rest, torch.zeros_like(state[5]), state[5]).contiguous()
+    if spec.control_type == "P":
+        hold = (state[4] - default[:, None]) / spec.action_scale
+        actions = torch.where(rest, hold, actions).contiguous()
+    return (*state[:5], qd), actions
+
+
+def _assert_same_joints_held(qd_kernel, qd_plain):
+    """The entries at exactly zero velocity: some, and the same set in the
+    kernel and the plain version up to 1 % of all entries."""
+    zk, zp = qd_kernel == 0.0, qd_plain == 0.0
+    assert int(zk.sum()) > 0 and int(zp.sum()) > 0
+    assert int((zk != zp).sum()) <= 0.01 * zk.numel()
+
+
+@pytest.fixture(scope="module")
+def stiction_env():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernel has no CPU mode")
+    cfg, _ = task_registry.get_cfgs("go2_stiction")
+    cfg.env.num_envs = B
+    env, _ = task_registry.make_env("go2_stiction", env_cfg=cfg, device="cuda")
+    return env
+
+
+@pytest.mark.cuda
+def test_stiction_kernel_matches_plain_version(stiction_env):
+    """go2_stiction's own spec (plane, 'P', implicit stiction): the kernel
+    against the plain version, its own launch counter, the joints it holds,
+    and `physics.control_step` against the eager engine."""
+    env = stiction_env
+    spec = env.fused_spec
+    assert spec.fl_dqd and spec.control_type == "P" and spec.hf_K == 0
+    name = fused_step.variant_name(spec)
+    assert name == "fused_control_step_stiction"
+    state, actions, dr = _batch(6)
+    state, actions = _rest_quarter(spec, state, actions, 7)
+    before = fused_step.launch_counts()
+    out = fused_step.fused_control_step(spec, state, actions, dr)
+    torch.cuda.synchronize()
+    after = fused_step.launch_counts()
+    assert after[name] == before.get(name, 0) + 1
+    assert all(after[k] == before[k] for k in before if k != name)
+    ref = fused_step.plain_control_step(spec, state, actions, dr)
+    _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]))
+    _assert_same_joints_held(out[0][5], ref[0][5])
+
+    args = (env.ma, env.hf, env.sim_params, env.pd, tphys.DomainRandParams(*dr),
+            env.dof_limits, tphys.PhysicsState(*state), actions)
+    st, info = tphys.control_step(*args, spec=spec)
+    torch.cuda.synchronize()
+    assert fused_step.launch_counts()[name] == after[name] + 1
+    st_e, info_e = tphys.eager_control_step(*args)
+    _assert_close_p99(NAMES, (*st, info.link_forces, info.torques),
+                      (*st_e, info_e.link_forces, info_e.torques))
+
+
+@pytest.mark.cuda
+def test_torque_control_stiction_heightfield_kernel_matches_plain_version():
+    """'T' control with implicit stiction on the go2_parkour heightfield, the
+    K2 combination farthest from K1, from an env made through the registry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernel has no CPU mode")
+    cfg, _ = task_registry.get_cfgs("go2_parkour")
+    cfg.env.num_envs = B
+    cfg.control.control_type = "T"
+    cfg.control.action_scale = 5.0
+    cfg.sim.joint_frictionloss_implicit = True
+    env, _ = task_registry.make_env("go2_parkour", env_cfg=cfg, device="cuda")
+    spec = env.fused_spec
+    assert spec.control_type == "T" and spec.fl_dqd and spec.hf_K == 24
+    name = fused_step.variant_name(spec)
+    assert name == "fused_control_step_T_stiction_hf"
+    state, actions, dr = _parkour_batch(env, 8)
+    state, actions = _rest_quarter(spec, state, actions, 9)
+    lp = patch.extract(env.hf, state[0][0], state[0][1], spec.hf_K)
+    terrain = fused_step.patch_inputs(lp)
+    before = fused_step.launch_counts()
+    out = fused_step.fused_control_step(spec, state, actions, dr, terrain)
+    torch.cuda.synchronize()
+    after = fused_step.launch_counts()
+    assert after[name] == before.get(name, 0) + 1
+    assert all(after[k] == before[k] for k in before if k != name)
+    ref = fused_step.plain_control_step(spec, state, actions, dr, terrain)
+    _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]), HF_TOL)
+    _assert_same_joints_held(out[0][5], ref[0][5])
+    # the torque is the scaled action, clipped to the effort limits: exact
+    tlim = torch.tensor(spec.torque_limits, dtype=torch.float32, device="cuda")[:, None]
+    torch.testing.assert_close(out[2], torch.maximum(torch.minimum(actions * 5.0, tlim), -tlim),
+                               rtol=0, atol=0)

@@ -279,24 +279,26 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_uncovered_variants_raise():
-    """'T' control and implicit stiction (K2), on the plane and on a
-    heightfield, a heightfield step with no window, and per-substep terrain
-    resampling raise NotImplementedError rather than running another path."""
+    """'V' control, on the plane and on a heightfield, a heightfield step
+    with no window, and per-substep terrain resampling raise
+    NotImplementedError rather than running another path; the K2 options
+    ('T' control, implicit stiction) are covered and run."""
     spec = _go2_spec()
     state, actions, dr = _batch_t()
     hf_spec = spec._replace(hf_K=24, hf_hs=0.1)
     terrain = (torch.zeros(8, 24, 24), torch.zeros(8), torch.zeros(8))
-    for bad, tr in ((spec._replace(control_type="T"), None),
-                    (hf_spec._replace(control_type="T"), terrain),
-                    (spec._replace(fl_dqd=(0.1,) * 12), None),
-                    (hf_spec._replace(fl_dqd=(0.1,) * 12), terrain),
+    for bad, tr in ((spec._replace(control_type="V"), None),
+                    (hf_spec._replace(control_type="V"), terrain),
                     (hf_spec, None)):
         with pytest.raises(NotImplementedError):
             tfused.fused_control_step(bad, state, actions, dr, tr)
+    for covered, tr in ((spec._replace(control_type="T"), None),
+                        (hf_spec._replace(control_type="T"), terrain),
+                        (spec._replace(fl_dqd=(0.1,) * 12), None),
+                        (hf_spec._replace(fl_dqd=(0.1,) * 12), terrain)):
+        out = tfused.fused_control_step(covered, state, actions, dr, tr)
+        assert all(bool(torch.isfinite(t).all()) for t in (*out[0], out[1], out[2]))
     _, (ma_t, pd_t, dl_t) = _both(SYNTHETIC_GO2_URDF, GO2_DEFAULT)
-    with pytest.raises(NotImplementedError):
-        tfused.build_spec(ma_t, _plant(12, False)._replace(frictionloss_implicit=True),
-                          pd_t, dl_t)
     with pytest.raises(NotImplementedError, match="terrain_tick_sample"):
         tfused.build_spec(ma_t, _plant(12, False)._replace(terrain_tick_sample=False),
                           pd_t, dl_t, hf_K=24, hf_hs=0.1)

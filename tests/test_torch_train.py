@@ -84,11 +84,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_port_modules_load_without_jax():
-    """Importing the port's env, terrain, patch and kernel modules pulls in
-    neither JAX nor the JAX package, transitively (a fresh interpreter)."""
+    """Importing the port's env, terrain, patch, kernel, deploy and play
+    modules pulls in neither JAX nor the JAX package, transitively (a fresh
+    interpreter)."""
     code = ("import sys\n"
             "import legged_gym_custom_tpu_torch.envs, legged_gym_custom_tpu_torch.terrain\n"
             "import legged_gym_custom_tpu_torch.physics.patch, legged_gym_custom_tpu_torch.ops.fused_step\n"
+            "import legged_gym_custom_tpu_torch.deploy, legged_gym_custom_tpu_torch.scripts.play\n"
+            "import legged_gym_custom_tpu_torch.utils.logger\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
                          cwd=os.path.dirname(PORT_DIR), check=True)
