@@ -8,15 +8,18 @@ last line: a short first run for a new kernel build.
 Phases (any failure exits non-zero; the last line is printed only on success):
   1. card    - device name and `nvidia-smi` name / power limit;
   2. build   - nvcc-builds every kernel of the main paths from the sources in
-               this checkout, one build per spec, all four started together:
+               this checkout, one build per spec, all started together (with
+               them the builds of phases 3 and 4 that no path runs: K1 at one
+               lane per leg, and the kernel on the tests' small tree):
                K1 (the fused control step on the plane, go2), K3 (its
                heightfield variant, go2_parkour) and two builds of the K2
                options: `fused_control_step_stiction` (go2_stiction's own
                spec: plane, 'P' control, implicit stiction) and
                `fused_control_step_T_hf` ('T' control with implicit stiction
                on the go2_parkour heightfield, the combination farthest from
-               K1); prints build seconds and each ptxas register / spill
-               report;
+               K1); prints build seconds, each ptxas register / spill report
+               and each launch shape (lanes per env, block, grid, shared
+               memory, resident blocks per SM);
   3. check   - each kernel against its plain PyTorch version on the card, at
                the main path's shapes, B = 4096 envs on the synthetic
                Go2-shaped URDF: K1 on a seeded random batch, the heightfield
@@ -26,13 +29,22 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                a batch with a quarter of the joints at rest; each output
                gated at its 99th percentile, and for the stiction builds the
                (joint, env) entries that end at exactly zero velocity must
-               be the same set in kernel and plain version up to 1 %;
+               be the same set in kernel and plain version up to 1 %; then
+               K1 and K3 again at B = 100 and B = 1000, where the last block
+               is ragged, and the kernel on the tests' tree of unequal, forking
+               branches (padded slots, an empty lane, a dense joint rotation);
   4. timing  - CUDA-event medians of each kernel and of its plain version;
-               the bound from the bytes and operations of this run's inputs;
-  5. closed loop - 25 control steps of the stiction kernel and of its plain
-               version side by side from one seeded batch of 1024 envs under
-               one action sequence: Kolmogorov-Smirnov distance of the final
-               joint angles and base heights under 0.05;
+               the bound from the bytes of this run's inputs and the
+               operations that the kernel's algorithm (block inertias, planar
+               joint rotations, one base solve per env) does on them, counted
+               from the plan-walking step of the tests; K1 also at B = 1024
+               and 16384; and K1 in turns within this call at a lane per leg
+               (G = 4) against the wrapper's pair of lanes per leg (G = 8);
+  5. closed loop - 25 control steps of K1, K3 and the stiction kernel, each
+               beside its plain version from one seeded batch of 1024 envs
+               under one action sequence (K3 on the go2_parkour terrain, its
+               windows cut anew every step): Kolmogorov-Smirnov distance of
+               the final joint angles and base heights under 0.05;
   6. paths   - `scripts.train --task go2_parkour --num_envs 4096
                --max_iterations 3`, the same for `--task go2`, then the
                go2_stiction path: train 3 iterations, `--resume` for one more
@@ -67,11 +79,15 @@ import torch
 # the tensor cores and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+SM_CLOCK_HZ = 1.98e9      # H100 SXM boost clock: sizes the spin that lets the host run ahead
+AHEAD_MS = 60.0           # 50 launches of a wrapper that takes ~0.2 ms of host time each
 NUM_ENVS = 4096
 TRAIN_ITERATIONS = 3
 STEPS_PER_ITERATION = 24
 PLAY_STEPS = 100
 KS_ENVS, KS_STEPS, KS_GATE = 1024, 25, 0.05   # the gate of tests/test_fused_step.py:336
+RAGGED_ENVS = (100, 1000)      # neither fills its last block
+TREE_K, TREE_HS = 8, 0.1       # the test tree's window
 SOURCE = "legged_gym_custom_tpu_torch/ops/csrc/fused_step.cu"
 REFERENCE = "legged_gym_custom_tpu/ops/fused_step.py"
 # Per-output tolerances (atol, rtol) of tests/test_fused_step.py:126-135 (K1)
@@ -127,7 +143,7 @@ def gap_edges(env) -> np.ndarray:
     return (idx + 1) * t.horizontal_scale - t.border_size
 
 
-def parkour_batch(env, seed: int, device):
+def parkour_batch(env, seed: int, device, B: int = None):
     """`rand_batch` with the bases placed over the env's own gap-course
     terrain: x over the courses' length, a quarter within 0.3 m of a gap
     edge, y inside a random course's valid width; plus each env's contact
@@ -135,7 +151,7 @@ def parkour_batch(env, seed: int, device):
     from legged_gym_custom_tpu_torch.ops import fused_step
     from legged_gym_custom_tpu_torch.physics import patch
 
-    B = env.num_envs
+    B = env.num_envs if B is None else B
     state, actions, dr = rand_batch(seed, B, device)
     rng = np.random.default_rng(seed + 1)
     t = env.cfg.terrain
@@ -185,15 +201,24 @@ def ks_distance(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.abs(cdf_a - cdf_b).max())
 
 
-def closed_loop_ks(label, spec, device) -> bool:
+def closed_loop_ks(label, spec, device, env=None) -> bool:
     """KS_STEPS control steps of the kernel and of its plain version from one
     seeded batch under one action sequence (an AR(1) of seeded normals, as
     tests/test_fused_step.py:374-378): the distributions of the final joint
     angles and base heights must agree.  Stick and slip decide differently
-    from a one-ULP seed, so single envs may part; the distribution must not."""
+    from a one-ULP seed, so single envs may part; the distribution must not.
+    A heightfield spec starts over `env`'s terrain and cuts each side's
+    windows anew at every step, as the engine does."""
     from legged_gym_custom_tpu_torch.ops import fused_step
+    from legged_gym_custom_tpu_torch.physics import patch
 
-    state0, _, dr = rand_batch(21, KS_ENVS, device)
+    if spec.hf_K:
+        state0, _, dr = parkour_batch(env, 21, device, KS_ENVS)[:3]
+        window = lambda st: (fused_step.patch_inputs(
+            patch.extract(env.hf, st[0][0], st[0][1], spec.hf_K)),)
+    else:
+        state0, _, dr = rand_batch(21, KS_ENVS, device)
+        window = lambda st: ()
     gen = torch.Generator(device=device).manual_seed(77)
     st_k = st_p = state0
     a = torch.zeros((12, KS_ENVS), device=device)
@@ -201,8 +226,9 @@ def closed_loop_ks(label, spec, device) -> bool:
     for _ in range(KS_STEPS):
         a = 0.8 * a + 0.2 * torch.randn(a.shape, generator=gen, device=device) * 1.5
         act = a.clamp(-3.14, 3.14).contiguous()
-        st_k = fused_step.fused_control_step(spec, st_k, act, dr)[0]
-        st_p = tuple(t.contiguous() for t in fused_step.plain_control_step(spec, st_p, act, dr)[0])
+        st_k = fused_step.fused_control_step(spec, st_k, act, dr, *window(st_k))[0]
+        st_p = tuple(t.contiguous() for t in
+                     fused_step.plain_control_step(spec, st_p, act, dr, *window(st_p))[0])
     torch.cuda.synchronize()
     ks_q = ks_distance(st_k[4].cpu().numpy(), st_p[4].cpu().numpy())
     ks_z = ks_distance(st_k[0][2].cpu().numpy(), st_p[0][2].cpu().numpy())
@@ -243,20 +269,26 @@ def count_operations(fn, *args) -> int:
     return Counter.total
 
 
-def cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median of `reps` CUDA-event timings of `fn()`, after `warmup` calls."""
+def cuda_time_ms(fn, reps: int, warmup: int = 3, ahead_ms: float = 0.0) -> float:
+    """Median of `reps` CUDA-event timings of `fn()`, after `warmup` calls.
+    A kernel that takes less than its Python wrapper takes to enqueue it would
+    be timed at the host's pace; `ahead_ms` first keeps the card spinning that
+    long, so that every launch and its two events are already queued when the
+    card reaches them and each pair of events brackets device time only."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    if ahead_ms:
+        torch.cuda._sleep(int(ahead_ms * 1e-3 * SM_CLOCK_HZ))
+    events = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([start.elapsed_time(end) for start, end in events]))
 
 
 def compare(names, got, ref, tolerances):
@@ -334,12 +366,20 @@ def check_kernel(label, names, tolerances, out_k, out_p):
     return ok, max(r["max_abs"] for r in rows.values())
 
 
-def time_kernel(label, spec, args, out_k, extra_bytes=()):
+def time_kernel(label, spec, args, out_k):
     """CUDA-event medians of the kernel and its plain version, bytes and
-    operations of this run's inputs, and the bound they give."""
-    from legged_gym_custom_tpu_torch.ops import fused_step
+    operations of this run's inputs, and the bound they give.  The operations
+    are those of the kernel's algorithm, counted on one env from the tests'
+    step that walks the lane plan at one lane per branch (nothing computed
+    twice); the plain version's count, with dense 6x6 inertias and dense
+    joint rotations, is printed beside it and bounds nothing."""
+    import torch_plan_step
 
-    ms = cuda_time_ms(lambda: fused_step.fused_control_step(spec, *args), reps=50)
+    from legged_gym_custom_tpu_torch.ops import fused_step, lane_plan
+
+    call = lambda: fused_step.fused_control_step(spec, *args)
+    ms = cuda_time_ms(call, reps=50, ahead_ms=AHEAD_MS)
+    host_ms = cuda_time_ms(call, reps=50)
     plain_reps = 5
     plain_ms = cuda_time_ms(lambda: fused_step.plain_control_step(spec, *args),
                             reps=plain_reps, warmup=1)
@@ -353,13 +393,18 @@ def time_kernel(label, spec, args, out_k, extra_bytes=()):
     if terrain is not None:
         one_env.append(tuple(t[:1].contiguous().cpu() for t in terrain))
     B = actions.shape[-1]
-    ops = count_operations(fused_step.plain_control_step, spec, *one_env) * B
+    plan = lane_plan.lane_plan(spec, 1)
+    ops = count_operations(torch_plan_step.plan_control_step, spec, plan, *one_env) * B
+    plain_ops = count_operations(fused_step.plain_control_step, spec, *one_env) * B
     bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    log(f"[timing] {label} B={B}: {ms:.4f} ms (median of 50); plain {plain_ms:.2f} ms "
-        f"(median of {plain_reps}); {n_bytes} bytes, {ops} fp32 ops -> bound {bound_ms:.5f} ms "
-        f"by {bound_by} ({bytes_ms:.5f} ms bytes, {ops_ms:.5f} ms ops)")
+    log(f"[timing] {label} B={B}: {ms:.4f} ms on the card (median of 50, launches queued "
+        f"ahead), {host_ms:.4f} ms a call at the wrapper's pace; plain {plain_ms:.2f} ms "
+        f"(median of {plain_reps}); {n_bytes} bytes, {ops} fp32 ops of the kernel's algorithm "
+        f"({ops // B} an env; the plain version does {plain_ops // B}) -> bound {bound_ms:.5f} ms "
+        f"by {bound_by} ({bytes_ms:.5f} ms bytes, {ops_ms:.5f} ms ops); {ms / bound_ms:.1f}x the "
+        f"bound")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -510,6 +555,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
         return 2
+    # the tests' small tree and their plan-walking step (no task runs either)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_tree_model as tree_model
+
     from legged_gym_custom_tpu_torch import LEGGED_GYM_TORCH_ROOT_DIR, SYNTHETIC_GO2_URDF
     from legged_gym_custom_tpu_torch.envs import task_registry
     from legged_gym_custom_tpu_torch.ops import fused_step
@@ -549,15 +598,34 @@ def main() -> int:
         sp = specs[name]
         log(f"[spec] {name} (counter {variants[name]}): control {sp.control_type!r}, hf_K "
             f"{sp.hf_K}, fl_dqd {json.dumps([float(np.float32(v)) for v in sp.fl_dqd])}")
+    # The wrapper builds at first use; here every build of this run starts at
+    # once.  The layout follows from the spec (`lanes_per_branch_for`: a pair
+    # of lanes per leg, G = 8); beside the paths' four, K1 at one lane per leg
+    # (G = 4) for phase 4's comparison, and the test tree.
+    lanes = fused_step.lanes_per_branch_for(specs["fused_control_step"])
+    one_lane = "K1 at one lane per leg"
+    tree_specs = {"test tree, plane, 'P', tanh": tree_model.tree_spec(),
+                  "test tree, heightfield, 'T', implicit stiction":
+                      tree_model.tree_spec(TREE_K, TREE_HS, "T", True)}
     t0 = time.time()
     builds = {name: fused_step.KernelBuild(spec) for name, spec in specs.items()}
+    other_builds = {one_lane: fused_step.KernelBuild(specs["fused_control_step"], 1),
+                    **{label: fused_step.KernelBuild(spec) for label, spec in tree_specs.items()}}
     kernels = {name: b.finish() for name, b in builds.items()}
-    log(f"[build] {len(builds)} kernels in {time.time() - t0:.2f}s wall")
-    for name, kernel in kernels.items():
-        log(f"[build] {name}: nvcc {kernel.build_seconds:.2f}s; ptxas "
-            f"{json.dumps(fused_step.ptxas_summary(kernel.ptxas))}")
-        for line in kernel.ptxas.splitlines():
-            log(f"[build] {name} ptxas: {line}")
+    other_kernels = {label: b.finish() for label, b in other_builds.items()}
+    log(f"[build] {len(builds) + len(other_builds)} kernels in {time.time() - t0:.2f}s wall "
+        f"({len(builds)} of the main paths, {len(other_builds)} of the layout and tree checks); "
+        f"lanes per leg: {lanes}")
+    for name, kernel in {**kernels, **other_kernels}.items():
+        summary = fused_step.ptxas_summary(kernel.ptxas)
+        info = fused_step.launch_info(kernel, NUM_ENVS)
+        log(f"[build] {name}: nvcc {kernel.build_seconds:.2f}s; ptxas {json.dumps(summary)}; "
+            f"launch at B={NUM_ENVS}: {json.dumps(info)}")
+        if name in kernels:
+            for line in kernel.ptxas.splitlines():
+                log(f"[build] {name} ptxas: {line}")
+        if summary.get("spill_store_bytes") or summary.get("spill_load_bytes"):
+            log(f"[build] note: {name} spills to local memory")
 
     if stop_after == "build":
         log("[stop] after build")
@@ -594,6 +662,31 @@ def main() -> int:
                              ("fused_control_step_T_hf", "K2 'T' hf", HF_TOLERANCES)):
         ok_k, errs[name], outs[name] = check(name, label, args[name], tol)
         ok &= ok_k
+    # the ragged edge: the last block computes envs beyond B and stores none
+    for B in RAGGED_ENVS:
+        ok &= check("fused_control_step", f"K1 B={B}", rand_batch(8, B, device), TOLERANCES)[0]
+        ok &= check("fused_control_step_hf", f"K3 B={B}",
+                    parkour_batch(parkour, 9, device, B)[:4], HF_TOLERANCES)[0]
+    # K1 at one lane per leg, which phase 4 times
+    name = "fused_control_step"
+    out = fused_step.launch_kernel(other_kernels[one_lane], specs[name], *args[name])
+    out = (out[:6], out[6].view(specs[name].n_links, 3, NUM_ENVS), out[7])
+    ok &= check_kernel(f"{one_lane}, against the wrapper's layout", NAMES, TOLERANCES, out,
+                       outs[name])[0]
+    # the test tree: padded slots, an empty lane, parents that differ by lane,
+    # a dense joint rotation
+    for label, spec in tree_specs.items():
+        batch = tree_model.tree_batch(10, 1000, device)
+        if spec.hf_K:
+            batch = (*batch, tree_model.tree_terrain(11, batch[0], TREE_K, TREE_HS))
+        if spec.fl_dqd:
+            batch, _ = rest_quarter(batch, spec, seed=12)
+        ref = fused_step.plain_control_step(spec, *batch)
+        out = fused_step.fused_control_step(spec, *batch)
+        torch.cuda.synchronize()
+        ok &= check_kernel(label, NAMES, HF_TOLERANCES if spec.hf_K else TOLERANCES, out, ref)[0]
+        if spec.fl_dqd:
+            ok &= zero_sets_agree(label, out[0][5], ref[0][5])
     torch.cuda.synchronize()
     if not ok or near < NUM_ENVS // 4:
         log("[check] FAIL: a kernel disagrees with its plain version (or too few bases at "
@@ -611,15 +704,38 @@ def main() -> int:
     timings = {name: time_kernel(f"{name} ({labels[name]})", specs[name], args[name], outs[name])
                for name in specs}
 
+    k1 = specs["fused_control_step"]
+    for B in (1024, 16384):    # information only: the card unfilled, and filled
+        batch = rand_batch(13, B, device)
+        ms = cuda_time_ms(lambda: fused_step.fused_control_step(k1, *batch), reps=50,
+                          ahead_ms=AHEAD_MS)
+        info = fused_step.launch_info(kernels["fused_control_step"], B)
+        log(f"[timing] fused_control_step (K1) B={B}: {ms:.4f} ms (median of 50); grid "
+            f"{info['grid']} blocks of {info['block']}, {info['resident_blocks_per_sm']} resident "
+            f"per SM")
+    # a pair of lanes per leg against one, in turns within this call (a, b, b,
+    # a), at the main path's batch and where the card fills
+    for B in (NUM_ENVS, 2 * NUM_ENVS, 4 * NUM_ENVS):
+        batch = args["fused_control_step"] if B == NUM_ENVS else rand_batch(14, B, device)
+        runs = {"pair": lambda: fused_step.launch_kernel(kernels["fused_control_step"], k1, *batch),
+                "one": lambda: fused_step.launch_kernel(other_kernels[one_lane], k1, *batch)}
+        times = {k: [] for k in runs}
+        for k in ("pair", "one", "one", "pair"):
+            times[k].append(cuda_time_ms(runs[k], reps=50, ahead_ms=AHEAD_MS))
+        log(f"[layout] fused_control_step B={B}, medians of 50 in turns a, b, b, a: a pair of "
+            f"lanes per leg (G = 8) {times['pair'][0]:.4f}, {times['pair'][1]:.4f} ms; one lane "
+            f"per leg (G = 4) {times['one'][0]:.4f}, {times['one'][1]:.4f} ms")
+
     if stop_after == "timing":
         log("[stop] after timing")
         return 0
 
-    # ---- 5. closed loop: the stiction kernel and its plain version side by side
-    if not closed_loop_ks("fused_control_step_stiction", specs["fused_control_step_stiction"],
-                          device):
-        log("[closed loop] FAIL: the kernel's rollout leaves the plain version's distribution")
-        return 1
+    # ---- 5. closed loop: K1, K3 and the stiction kernel beside their plain versions
+    for name, env in (("fused_control_step", None), ("fused_control_step_hf", parkour),
+                      ("fused_control_step_stiction", None)):
+        if not closed_loop_ks(name, specs[name], device, env):
+            log(f"[closed loop] FAIL: {name}'s rollout leaves the plain version's distribution")
+            return 1
     del envs, parkour, args, outs
 
     # ---- 6. the main paths: counters 0 just before each, read just after

@@ -17,14 +17,17 @@ specialises at trace time and this port at build time:
     toward zero, which holds a joint at rest exactly.
 One launch runs a whole 50 Hz control step, decimation x substeps of PD
 torques, forward kinematics, penalty contact, joint-limit and passive
-torques, ABA with armature and semi-implicit Euler, one thread per env with
-the state held on chip across all substeps.  Device memory traffic is the
-state, actions and DR parameters (and for K3 each env's window and its
-offsets) in and the state, link forces and torques out.
+torques, ABA with armature and semi-implicit Euler.  A group of G lanes of a
+warp runs one env, each lane one branch of the kinematic tree under the base
+(`ops/lane_plan.py::lane_plan`, host numpy), with the state held in registers
+and shared memory across all substeps.  Device memory traffic is the state,
+actions and DR parameters (and for K3 each env's window and its offsets) in
+and the state, link forces and torques out.
 
 The model constants are baked into the kernel at build time from a
 `FusedSpec` (built host-side in numpy, as the reference's fix 841adc9
-requires): `ops/fused_step.py` writes them into a generated header and
+requires): `ops/fused_step.py` writes them and the lane plan into a generated
+header and
 compiles `fused_step.cu` with nvcc for sm_90a into a shared library with a
 plain C interface, loaded with ctypes and cached per spec.
 
@@ -37,6 +40,7 @@ NotImplementedError naming the missing variant on either device.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -46,6 +50,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from . import lane_plan as lane_plan_lib
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = os.path.join(_HERE, "csrc", "fused_step.cu")
@@ -721,28 +727,29 @@ def _ilist(x):
     return "{" + ", ".join(str(int(v)) for v in np.asarray(x).ravel()) + "}"
 
 
-def spec_header(spec: FusedSpec) -> str:
-    """The generated header that bakes a spec into the kernel source."""
+@functools.lru_cache(maxsize=None)
+def lanes_per_branch_for(spec: FusedSpec) -> int:
+    """The kernel's layout for a spec: a pair of lanes of a warp per branch of
+    the tree (both walk the branch, each takes half of a body's spheres)
+    wherever the pairs fit a warp, else one lane per branch.  On an NVIDIA
+    H100 80GB HBM3 at a 700 W power limit the pair is the faster for the
+    quadruped at the 4096 envs every config runs (PERF.md section 6)."""
+    n_branches = len(lane_plan_lib.branches([int(p) for p in spec.parent]))
+    return 2 if 2 * n_branches <= lane_plan_lib.MAX_LANES else 1
+
+
+def spec_header(spec: FusedSpec, lanes_per_branch: int = 1) -> str:
+    """The generated header that bakes a spec and its lane plan, at
+    `lanes_per_branch` lanes a branch, into the kernel source."""
     nb = len(spec.parent)
+    plan = lane_plan_lib.lane_plan(spec, lanes_per_branch)
     lines = [
         "// generated by legged_gym_custom_tpu_torch/ops/fused_step.py::spec_header",
         f"#define LGC_NB {nb}",
-        f"#define LGC_NG {len(spec.geom_body)}",
         f"#define LGC_NL {spec.n_links}",
         f"#define LGC_DECIMATION {spec.decimation}",
         f"#define LGC_SUBSTEPS {spec.substeps}",
         f"#define LGC_DOF_VEL_CLAMP {1 if spec.dof_vel_clamp else 0}",
-        f"#define LGC_PARENT {_ilist(spec.parent)}",
-        f"#define LGC_JOINT_ROT {_flist(spec.joint_rot)}",
-        f"#define LGC_JOINT_POS {_flist(spec.joint_pos)}",
-        f"#define LGC_JOINT_AXIS {_flist(spec.joint_axis)}",
-        f"#define LGC_MASS {_flist(spec.mass)}",
-        f"#define LGC_COM {_flist(spec.com)}",
-        f"#define LGC_INERTIA_COM {_flist(spec.inertia_com)}",
-        f"#define LGC_GEOM_BODY {_ilist(spec.geom_body)}",
-        f"#define LGC_GEOM_POS {_flist(spec.geom_pos)}",
-        f"#define LGC_GEOM_RADIUS {_flist(spec.geom_radius)}",
-        f"#define LGC_GEOM_LINK {_ilist(spec.geom_link)}",
         f"#define LGC_DT_SUB {_flist([spec.dt / spec.substeps])[1:-1]}",
         f"#define LGC_GRAVITY {_flist(spec.gravity)}",
         f"#define LGC_STIFFNESS {_flist([spec.stiffness])[1:-1]}",
@@ -751,30 +758,35 @@ def spec_header(spec: FusedSpec) -> str:
         f"#define LGC_TERRAIN_FRICTION {_flist([spec.terrain_friction])[1:-1]}",
         f"#define LGC_JL_STIFFNESS {_flist([spec.jl_stiffness])[1:-1]}",
         f"#define LGC_JL_DAMPING {_flist([spec.jl_damping])[1:-1]}",
-        f"#define LGC_JD_DAMPING {_flist(spec.jd_damping)}",
-        f"#define LGC_JD_ARMATURE {_flist(spec.jd_armature)}",
-        f"#define LGC_JD_FRICTIONLOSS {_flist(spec.jd_frictionloss)}",
         f"#define LGC_INV_FL_EPS {_flist([1.0 / spec.fl_eps])[1:-1]}",
-        f"#define LGC_P_GAINS {_flist(spec.p_gains)}",
-        f"#define LGC_D_GAINS {_flist(spec.d_gains)}",
-        f"#define LGC_DEFAULT_DOF_POS {_flist(spec.default_dof_pos)}",
-        f"#define LGC_TORQUE_LIMITS {_flist(spec.torque_limits)}",
         f"#define LGC_ACTION_SCALE {_flist([spec.action_scale])[1:-1]}",
-        f"#define LGC_DOF_LO {_flist(spec.dof_lo)}",
-        f"#define LGC_DOF_HI {_flist(spec.dof_hi)}",
-        f"#define LGC_DOF_VLIM {_flist(spec.dof_vlim)}",
         # heightfield variant (K3): window side, inverse cell size and the
         # clamp bound K - 1.001 as the reference's float32 arithmetic sees it
         f"#define LGC_HF_K {spec.hf_K}",
         f"#define LGC_HF_INV_HS {_flist([1.0 / spec.hf_hs if spec.hf_K else 0.0])[1:-1]}",
         f"#define LGC_HF_GMAX {_flist([spec.hf_K - 1.001 if spec.hf_K else 0.0])[1:-1]}",
         # K2 options: direct torque control; implicit stiction and its
-        # per-substep velocity clamp (zeros when off)
+        # per-substep velocity clamps by dof (zeros when off; the kernel reads
+        # them by slot and lane, as the plan's DQD)
         f"#define LGC_CONTROL_T {1 if spec.control_type == 'T' else 0}",
         f"#define LGC_FL_IMPLICIT {1 if spec.fl_dqd else 0}",
         f"#define LGC_FL_DQD {_flist(spec.fl_dqd or (0.0,) * (nb - 1))}",
+        # the base body, whose mass and com are randomized per env
+        f"#define LGC_MASS0 {_flist([spec.mass[0]])[1:-1]}",
+        f"#define LGC_COM0 {_flist(spec.com[0])}",
+        f"#define LGC_ICOM0 {_flist(spec.inertia_com[0])}",
     ]
+    lines += lane_plan_lib.header_lines(plan)
     return "\n".join(lines) + "\n"
+
+
+def library_key(spec: FusedSpec, lanes_per_branch: int = 1) -> str:
+    """What names a built library: a hash of the kernel source, the generated
+    header (the spec and its lane plan) and the nvcc flags."""
+    with open(KERNEL_SOURCE) as f:
+        source = f.read()
+    text = source + spec_header(spec, lanes_per_branch) + " ".join(NVCC_FLAGS)
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
 class FusedKernel(NamedTuple):
@@ -791,22 +803,23 @@ def _nvcc() -> str:
     return path
 
 
-_KERNELS: dict = {}   # FusedSpec -> FusedKernel, one build per spec per process
+_KERNELS: dict = {}   # (FusedSpec, lanes per branch) -> FusedKernel, built once each
 
 
 class KernelBuild:
     """An nvcc build of the kernel for one spec, started in the background
     on construction so that several builds can run together; `finish`
     waits for it and loads the library.  A library already in BUILD_DIR
-    for the same source, spec header and flags is reused."""
+    for the same source, spec header and flags is reused.  `lanes_per_branch`
+    defaults to the wrapper's layout, `lanes_per_branch_for(spec)`."""
 
-    def __init__(self, spec: FusedSpec):
+    def __init__(self, spec: FusedSpec, lanes_per_branch: int = None):
         check_covered(spec)
         self.spec = spec
-        with open(KERNEL_SOURCE) as f:
-            source = f.read()
-        header = spec_header(spec)
-        key = hashlib.sha256((source + header + " ".join(NVCC_FLAGS)).encode()).hexdigest()[:16]
+        if lanes_per_branch is None:
+            lanes_per_branch = lanes_per_branch_for(spec)
+        self.key = (spec, lanes_per_branch)
+        key = library_key(spec, lanes_per_branch)
         os.makedirs(BUILD_DIR, exist_ok=True)
         self.lib_path = os.path.join(BUILD_DIR, f"fused_step_{key}.so")
         self.log_path = self.lib_path[:-3] + ".ptxas.txt"
@@ -816,7 +829,7 @@ class KernelBuild:
             return
         hdr_path = os.path.join(BUILD_DIR, f"fused_step_{key}.h")
         with open(hdr_path, "w") as f:
-            f.write(header)
+            f.write(spec_header(spec, lanes_per_branch))
         self.tmp = f"{self.lib_path}.{os.getpid()}.tmp"
         self.cmd = [_nvcc(), *NVCC_FLAGS, "-include", hdr_path, "-o", self.tmp, KERNEL_SOURCE]
         self.proc = subprocess.Popen(self.cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -845,15 +858,32 @@ class KernelBuild:
         lib.lgc_fused_control_step.restype = ctypes.c_int
         lib.lgc_cuda_error_string.argtypes = [ctypes.c_int]
         lib.lgc_cuda_error_string.restype = ctypes.c_char_p
+        lib.lgc_fused_launch_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.lgc_fused_launch_info.restype = ctypes.c_int
         kernel = FusedKernel(lib, ptxas, build_seconds)
-        _KERNELS[self.spec] = kernel
+        _KERNELS[self.key] = kernel
         return kernel
 
 
 def load_kernel(spec: FusedSpec) -> FusedKernel:
-    """The kernel library for `spec`, built at first use."""
-    kernel = _KERNELS.get(spec)
+    """The kernel library for `spec` in the wrapper's layout, built at first
+    use (or taken from a `KernelBuild` finished before)."""
+    kernel = _KERNELS.get((spec, lanes_per_branch_for(spec)))
     return kernel if kernel is not None else KernelBuild(spec).finish()
+
+
+def launch_info(kernel: FusedKernel, B: int) -> dict:
+    """The launch shape of a built kernel for B envs: lanes per env, block,
+    grid, shared memory, and the resident blocks per SM that
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor reports."""
+    out = (ctypes.c_int * 8)()
+    err = kernel.lib.lgc_fused_launch_info(B, out)
+    if err != 0:
+        raise RuntimeError("fused control-step launch info failed: "
+                           + kernel.lib.lgc_cuda_error_string(err).decode())
+    names = ("lanes_per_env", "block", "grid", "static_shared_bytes", "dynamic_shared_bytes",
+             "resident_blocks_per_sm", "registers", "local_bytes_per_thread")
+    return dict(zip(names, out))
 
 
 def ptxas_summary(ptxas: str) -> dict:
@@ -923,6 +953,31 @@ def _check_inputs(spec: FusedSpec, state, actions, dr, terrain):
     return B, device
 
 
+def launch_kernel(kernel: FusedKernel, spec: FusedSpec, state, actions, dr, terrain=None):
+    """Launch a built kernel on checked CUDA inputs, on the current stream;
+    returns the 8 output tensors.  Counts nothing: `fused_control_step` is
+    the wrapper, this is also how a build of another layout is timed."""
+    B, device = actions.shape[-1], actions.device
+    ndof = len(spec.parent) - 1
+    empty = lambda c: torch.empty((c, B), dtype=torch.float32, device=device)
+    outs = (empty(3), empty(4), empty(3), empty(3), empty(ndof), empty(ndof),
+            empty(3 * spec.n_links), empty(ndof))
+    ins = (*state, actions, *dr)
+    terrain_ptrs = [t.data_ptr() for t in terrain] if spec.hf_K else [None] * 3
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = kernel.lib.lgc_fused_control_step(
+            *[t.data_ptr() for t in ins], *terrain_ptrs, *[t.data_ptr() for t in outs], B,
+            stream
+        )
+    if err != 0:
+        raise RuntimeError(
+            "fused control-step kernel launch failed: "
+            + kernel.lib.lgc_cuda_error_string(err).decode()
+        )
+    return outs
+
+
 def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
     """One control step for B envs.
 
@@ -944,23 +999,7 @@ def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
     if device.type != "cuda":
         raise RuntimeError(f"fused_control_step: unsupported device {device}")
     kernel = load_kernel(spec)
-    ndof = len(spec.parent) - 1
-    empty = lambda c: torch.empty((c, B), dtype=torch.float32, device=device)
-    outs = (empty(3), empty(4), empty(3), empty(3), empty(ndof), empty(ndof),
-            empty(3 * spec.n_links), empty(ndof))
-    ins = (*state, actions, *dr)
-    terrain_ptrs = [t.data_ptr() for t in terrain] if spec.hf_K else [None] * 3
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = kernel.lib.lgc_fused_control_step(
-            *[t.data_ptr() for t in ins], *terrain_ptrs, *[t.data_ptr() for t in outs], B,
-            stream
-        )
-    if err != 0:
-        raise RuntimeError(
-            "fused control-step kernel launch failed: "
-            + kernel.lib.lgc_cuda_error_string(err).decode()
-        )
+    outs = launch_kernel(kernel, spec, state, actions, dr, terrain)
     if spec.control_type == "T" or spec.fl_dqd:
         name = variant_name(spec)
         fused_control_step.k2_launches[name] = fused_control_step.k2_launches.get(name, 0) + 1

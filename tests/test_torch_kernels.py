@@ -35,7 +35,7 @@ def go2_env():
     return env
 
 
-def _batch(seed=0):
+def _batch(seed=0, B=B):
     rng = np.random.default_rng(seed)
     quat = rng.normal(size=(4, B)) * 0.1 + np.array([1.0, 0, 0, 0])[:, None]
     quat /= np.linalg.norm(quat, axis=0, keepdims=True)
@@ -112,10 +112,10 @@ def parkour_env():
     return env
 
 
-def _parkour_batch(env, seed):
+def _parkour_batch(env, seed, B=B):
     """`_batch` with the bases over the go2_parkour gap courses, a quarter
     of them within 0.3 m of a gap edge, and their contact windows."""
-    state, actions, dr = _batch(seed)
+    state, actions, dr = _batch(seed, B)
     rng = np.random.default_rng(seed + 1)
     t = env.cfg.terrain
     col = int(t.border_size / t.horizontal_scale) + int(t.terrain_width / t.horizontal_scale) // 2
@@ -177,6 +177,31 @@ def test_engine_on_card_raises_for_uncovered_heightfield_variants(parkour_env):
         tphys.control_step(*base, spec=env.fused_spec._replace(control_type="V"))
     with pytest.raises(NotImplementedError):   # no window for a heightfield spec
         fused_step.fused_control_step(env.fused_spec, state, actions, dr)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_on_a_ragged_batch(go2_env):
+    """B = 100 fills no block: the lanes beyond the last env compute and store
+    nothing, and every env below B is written."""
+    spec = go2_env.fused_spec
+    state, actions, dr = _batch(10, 100)
+    out = fused_step.fused_control_step(spec, state, actions, dr)
+    torch.cuda.synchronize()
+    ref = fused_step.plain_control_step(spec, state, actions, dr)
+    assert out[1].shape == (spec.n_links, 3, 100)
+    _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]))
+
+
+@pytest.mark.cuda
+def test_heightfield_kernel_on_a_ragged_batch(parkour_env):
+    spec = parkour_env.fused_spec
+    state, actions, dr = _parkour_batch(parkour_env, 11, 100)
+    lp = patch.extract(parkour_env.hf, state[0][0], state[0][1], spec.hf_K)
+    terrain = fused_step.patch_inputs(lp)
+    out = fused_step.fused_control_step(spec, state, actions, dr, terrain)
+    torch.cuda.synchronize()
+    ref = fused_step.plain_control_step(spec, state, actions, dr, terrain)
+    _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]), HF_TOL)
 
 
 def _rest_quarter(spec, state, actions, seed):
