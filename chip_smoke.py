@@ -33,6 +33,10 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                K1 and K3 again at B = 100 and B = 1000, where the last block
                is ragged, and the kernel on the tests' tree of unequal, forking
                branches (padded slots, an empty lane, a dense joint rotation);
+               K3 also on the go2_parkour_finetune composite course (raised
+               platforms between gaps), a quarter of the bases within 0.3 m of
+               a platform face or a gap edge, whose spec must name the same
+               library as go2_parkour's (no other nvcc build);
   4. timing  - CUDA-event medians of each kernel and of its plain version;
                the bound from the bytes of this run's inputs and the
                operations that the kernel's algorithm (block inertias, planar
@@ -52,7 +56,15 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                coefficient 0.1), `scripts.play` for 100 steps (exports
                `policy_bundle.npz`), and the numpy policy runtime on that
                bundle against the torch policy; then 24 steps of the 'T'
-               heightfield env under random actions.  Every launch counter is
+               heightfield env under random actions.  After go2_parkour, its
+               stage ladder: finetune, finetune2, bootcamp, commit, gap_commit
+               and cliff, one iteration each through `scripts.train`, each
+               loading the previous stage's run by name (iterations 3-8, PPO
+               at ROA coefficient 0.1); on the bootcamp env the spawn
+               curriculum's bounds after `reset_all`, on the commit env the
+               stall termination under zero actions and a 0.8 m/s command;
+               then `scripts.eval_parkour` on the cliff checkpoint, on a gap
+               course and on the composite course.  Every launch counter is
                set to 0 just before each run and read just after: the path's
                kernel must have launched once per env step (plus one in
                `reset_all`) and no other kernel at all, every loss must be
@@ -65,6 +77,8 @@ Then it prints the kernels' JSON line, the card's line and, last,
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -86,6 +100,12 @@ TRAIN_ITERATIONS = 3
 STEPS_PER_ITERATION = 24
 PLAY_STEPS = 100
 KS_ENVS, KS_STEPS, KS_GATE = 1024, 25, 0.05   # the gate of tests/test_fused_step.py:336
+LADDER = ("finetune", "finetune2", "bootcamp", "commit", "gap_commit", "cliff")
+EVAL_STEPS = 100
+# the JAX tool's results, whose keys the port's eval_parkour must print
+EVAL_KEYS = {"gaps": "trained/go2_parkour_tpu_r5/eval_gaps015.json",
+             "finetune": "trained/go2_parkour_tpu_r5/eval_composite_commit_stage.json"}
+HERE = os.path.dirname(os.path.abspath(__file__))
 RAGGED_ENVS = (100, 1000)      # neither fills its last block
 TREE_K, TREE_HS = 8, 0.1       # the test tree's window
 SOURCE = "legged_gym_custom_tpu_torch/ops/csrc/fused_step.cu"
@@ -422,11 +442,24 @@ def only_launched(what: str, variant: str, expected: int) -> bool:
     return ok
 
 
+class Tee(io.StringIO):
+    """Keeps what is printed and passes it on to `stream`."""
+
+    def __init__(self, stream):
+        super().__init__()
+        self.stream = stream
+
+    def write(self, text):
+        self.stream.write(text)
+        return super().write(text)
+
+
 def train_task(task: str, variant: str, iterations: int = TRAIN_ITERATIONS, first_iteration=0,
                updates=("dagger", "ppo", "ppo"), extra=(), log_root="default"):
     """A training path of `task`: the train CLI's `train` at 4096 envs, with
     the launch counters set to 0 just before and read just after.  Returns
-    (runner, history, launches of the path's kernel) or None on a failed gate."""
+    (runner, history, launches of the path's kernel, what it printed) or None
+    on a failed gate."""
     from legged_gym_custom_tpu_torch.ops import fused_step
     from legged_gym_custom_tpu_torch.scripts import train as train_script
 
@@ -435,7 +468,9 @@ def train_task(task: str, variant: str, iterations: int = TRAIN_ITERATIONS, firs
                                   "--device", "cuda", "--run_name", "chip_smoke", *extra])
     fused_step.reset_launch_counts()
     t0 = time.time()
-    runner, history = train_script.train(args, log_root=log_root)
+    printed = Tee(sys.stdout)
+    with contextlib.redirect_stdout(printed):
+        runner, history = train_script.train(args, log_root=log_root)
     torch.cuda.synchronize()
     launches = fused_step.launch_counts().get(variant, 0)
     train_s = time.time() - t0
@@ -459,7 +494,7 @@ def train_task(task: str, variant: str, iterations: int = TRAIN_ITERATIONS, firs
         log(f"[train] FAIL: {label}: expected updates {list(updates)} from iteration "
             f"{first_iteration}")
         return None
-    return runner, history, launches
+    return runner, history, launches, printed.getvalue()
 
 
 def stiction_path(device, variant: str, log_root: str):
@@ -478,7 +513,7 @@ def stiction_path(device, variant: str, log_root: str):
                         updates=("ppo",), extra=("--resume",), log_root=log_root)
     if result is None:
         return None
-    runner, history, resume_launches = result
+    runner, history, resume_launches, _ = result
     roa = history[0]["reg_coef"]
     log(f"[resume] loaded the newest checkpoint {os.path.relpath(newest, log_root)}; iteration "
         f"{history[0]['iteration']}, ROA coefficient {roa:.4f} (resume schedule: 0.1), "
@@ -548,6 +583,150 @@ def torque_rollout(env, variant: str) -> int:
     return 1 + STEPS_PER_ITERATION
 
 
+def spawn_check(env, variant: str, card: str) -> int:
+    """The spawn curriculum on a 4096-env bootcamp env after `reset_all`:
+    every base x relative to its origin within the slots +- (jitter + 1.01 m),
+    at least 3 slots used, a mean forward velocity above 0.5 m/s (the bounds
+    of tests/test_env.py:148-182).  Returns its launches, or -1 on a failed
+    gate."""
+    from legged_gym_custom_tpu_torch.ops import fused_step
+
+    fused_step.reset_launch_counts()
+    state, _ = env.reset_all(torch.Generator(device=env.device).manual_seed(3))
+    rel = (state.physics.base_pos[:, 0] - state.env_origins[:, 0]).cpu().numpy() \
+        - float(env.base_init["pos"][0])
+    vx = state.physics.lin_vel[:, 0].cpu().numpy()
+    init = env.cfg.init_state
+    offs = np.asarray(init.rand_x_offsets)
+    lo, hi = offs.min() + init.rand_x_jitter[0] - 1.01, offs.max() + init.rand_x_jitter[1] + 1.01
+    slots = len(np.unique(np.argmin(np.abs(rel[:, None] - offs[None, :]), axis=1)))
+    ok = bool((rel >= lo).all() and (rel <= hi).all()) and slots >= 3 and vx.mean() > 0.5
+    log(f"[ladder] bootcamp spawn, {env.num_envs} envs: x from the origin in [{rel.min():.3f}, "
+        f"{rel.max():.3f}] (bounds [{lo:.2f}, {hi:.2f}]), {slots} of {len(offs)} slots used, "
+        f"mean vx {vx.mean():.3f} m/s (gate 0.5) {'ok' if ok else 'FAIL'} | {card}")
+    if not only_launched("bootcamp reset_all", variant, 1) or not ok:
+        return -1
+    return 1
+
+
+def stall_check(env, variant: str, card: str) -> int:
+    """The progress-stall rule on a 4096-env commit env under zero actions and
+    a 0.8 m/s command: each env's first episode must end, and an env that did
+    not fall first must be ended by the stall rule within 2.0 s plus 10 % of
+    control steps after its last new ground, never as a time_out.  Returns
+    the launches, or -1 on a failed gate."""
+    from legged_gym_custom_tpu_torch.ops import fused_step
+
+    dev, B = env.device, env.num_envs
+    limit = int(round(1.1 * env.stall_time_s / env.dt))
+    fused_step.reset_launch_counts()
+    state, _ = env.reset_all(torch.Generator(device=dev).manual_seed(9))
+    cmd = torch.tensor([0.8, 0.0, 0.0, 0.0], device=dev).expand(B, 4)
+    zero = torch.zeros((B, env.num_actions), device=dev)
+    open_ = torch.ones(B, dtype=torch.bool, device=dev)       # in its first episode
+    last_new = torch.zeros(B, dtype=torch.long, device=dev)   # last step with new ground
+    by_stall = torch.zeros(B, dtype=torch.bool, device=dev)
+    late = torch.zeros(B, dtype=torch.bool, device=dev)
+    time_outs = 0
+    steps = 0
+    while bool(open_.any()) and steps < limit + 50:
+        prev_stall = state.stall_time
+        state, _, _, done, info = env.step(state.replace(commands=cmd), zero)
+        steps += 1
+        stall = open_ & done & (prev_stall + env.dt > env.stall_time_s)
+        by_stall |= stall
+        late |= stall & (steps - last_new > limit)
+        time_outs += int((info["time_outs"] & open_).sum())
+        last_new = torch.where(open_ & ~done & (state.stall_time == 0.0), steps, last_new)
+        open_ &= ~done
+    n_stall, n_open = int(by_stall.sum()), int(open_.sum())
+    ok = n_open == 0 and not bool(late.any()) and time_outs == 0 and n_stall > 0
+    log(f"[ladder] commit stall, {B} envs, zero actions under a 0.8 m/s command, stall_time_s "
+        f"{env.stall_time_s}: {steps} steps; {n_stall} ended by the stall rule, all within "
+        f"{limit} steps of their last new ground: {not bool(late.any())}; {B - n_stall - n_open} "
+        f"ended otherwise first; {n_open} still open; {time_outs} time_outs "
+        f"{'ok' if ok else 'FAIL'} | {card}")
+    if not only_launched("commit stall", variant, 1 + steps) or not ok:
+        return -1
+    return 1 + steps
+
+
+def eval_path(variant: str, log_root: str, run: str, card: str) -> int:
+    """`scripts.eval_parkour` on the cliff checkpoint at 4096 envs for
+    EVAL_STEPS steps, on a 0.3 m gap course and on the composite course: the
+    JSON keys of the JAX tool's results, finite values, the launches.
+    Returns the launches, or -1 on a failed gate."""
+    from legged_gym_custom_tpu_torch.ops import fused_step
+    from legged_gym_custom_tpu_torch.scripts import eval_parkour
+
+    launches = 0
+    for course, extra in (("gaps", ["--gap_width", "0.3"]), ("finetune", [])):
+        args = eval_parkour.get_args(["--task", "go2_parkour_cliff", "--load_run", run,
+                                      "--num_envs", str(NUM_ENVS), "--steps", str(EVAL_STEPS),
+                                      "--course", course, *extra, "--device", "cuda"])
+        fused_step.reset_launch_counts()
+        run_ = eval_parkour.evaluate(args, log_root=log_root)
+        torch.cuda.synchronize()
+        with open(os.path.join(HERE, EVAL_KEYS[course])) as f:
+            keys_ok = list(run_.result) == list(json.load(f))
+        finite = all(np.isfinite(v) for v in run_.result.values()
+                     if isinstance(v, (int, float)) and not isinstance(v, bool))
+        log(f"[eval] {course}: {json.dumps(run_.result)} | {card}")
+        log(f"[eval] {course}: {run_.steps} steps of {NUM_ENVS} envs in {run_.seconds:.2f}s, "
+            f"{run_.seconds * 100 / run_.steps:.2f}s per 100 steps; keys those of "
+            f"{EVAL_KEYS[course]}: {keys_ok}; values finite: {finite} | {card}")
+        if not only_launched(f"eval_parkour {course}", variant, run_.steps + 1) or not keys_ok \
+                or not finite:
+            return -1
+        launches += run_.steps + 1
+    return launches
+
+
+def ladder_path(variant: str, log_root: str, first_run: str, card: str):
+    """The go2_parkour stage ladder after go2_parkour's run `first_run`: each
+    stage trains one iteration at 4096 envs through `scripts.train`, with
+    `--load_run` naming the previous stage's run (runs started within one
+    second would share a name prefix, and the newest by name may be the wrong
+    one); the spawn check on the bootcamp env, the stall check on the commit
+    env, and eval_parkour on the cliff checkpoint.  Returns the launches of
+    all of it, or None on a failed gate."""
+    launches, prev = 0, first_run
+    for i, stage in enumerate(LADDER):
+        it = TRAIN_ITERATIONS + i
+        task = f"go2_parkour_{stage}"
+        ckpt = os.path.join(log_root, prev, f"model_{it}.pt")
+        result = train_task(task, variant, iterations=1, first_iteration=it, updates=("ppo",),
+                            extra=("--run_name", f"chip_smoke_{stage}", "--load_run", prev),
+                            log_root=log_root)
+        if result is None:
+            return None
+        runner, history, n, printed = result
+        h = history[0]
+        loaded = f"Loading model from: {ckpt}" in printed
+        level = f", mean terrain level {h['terrain_level']:.3f}" if "terrain_level" in h else ""
+        log(f"[ladder] {task}: loaded {os.path.relpath(ckpt, log_root)}: {loaded}; iteration "
+            f"{h['iteration']}, {h['update']}, ROA coefficient {h['reg_coef']:.4f} (resume "
+            f"schedule 0.1), entropy coefficient {runner.ppo_cfg.entropy_coef}; "
+            f"{h['env_steps_per_s']:.0f} env-steps/s (collection {h['collection_s']:.3f}s, "
+            f"learning {h['learning_s']:.3f}s){level} | {card}")
+        if not loaded or abs(h["reg_coef"] - 0.1) > 1e-6 or \
+                (stage == "cliff") != ("terrain_level" in h):
+            log(f"[ladder] FAIL: {task} did not resume {ckpt} at ROA 0.1 (or the cliff's "
+                f"terrain level is missing)")
+            return None
+        launches += n
+        prev = os.path.basename(runner.log_dir)
+        more = {"bootcamp": spawn_check, "commit": stall_check}.get(stage)
+        if more is not None:
+            n = more(runner.env, variant, card)
+            if n < 0:
+                return None
+            launches += n
+        del runner, result
+    n = eval_path(variant, log_root, prev, card)
+    return None if n < 0 else launches + n
+
+
 def main() -> int:
     parser = argparse.ArgumentParser("chip_smoke")
     parser.add_argument("--stop-after", choices=("build", "check", "timing"), default=None)
@@ -556,7 +735,7 @@ def main() -> int:
         log("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
         return 2
     # the tests' small tree and their plan-walking step (no task runs either)
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    sys.path.insert(0, os.path.join(HERE, "tests"))
     import torch_tree_model as tree_model
 
     from legged_gym_custom_tpu_torch import LEGGED_GYM_TORCH_ROOT_DIR, SYNTHETIC_GO2_URDF
@@ -649,6 +828,18 @@ def main() -> int:
                .le(0.3).sum())
     log(f"[check] heightfield batches on the go2_parkour terrain: {n_edges} gap edges along a "
         f"course line, {near} of {NUM_ENVS} bases within 0.3 m of one")
+    finetune = make_env("go2_parkour_finetune")
+    lanes_hf = fused_step.lanes_per_branch_for(specs["fused_control_step_hf"])
+    same_build = finetune.fused_spec == specs["fused_control_step_hf"] and \
+        fused_step.library_key(finetune.fused_spec, lanes_hf) == \
+        fused_step.library_key(specs["fused_control_step_hf"], lanes_hf)
+    *ft_args, n_ft_edges = parkour_batch(finetune, 15, device)
+    near_ft = int((torch.as_tensor(gap_edges(finetune), device=device)[:, None]
+                   - ft_args[0][0][0][None]).abs().min(dim=0).values.le(0.3).sum())
+    log(f"[check] K3 on the go2_parkour_finetune composite course: {n_ft_edges} platform faces "
+        f"and gap edges along a course line (heights {finetune.terrain.height_field_raw.min()} "
+        f"to {finetune.terrain.height_field_raw.max()} x 5 mm), {near_ft} of {NUM_ENVS} bases "
+        f"within 0.3 m of one; the stage's spec names go2_parkour's library: {same_build} | {smi}")
     args["fused_control_step_stiction"], n_rest = rest_quarter(
         rand_batch(3, NUM_ENVS, device), specs["fused_control_step_stiction"], seed=4)
     t_env = envs["fused_control_step_T_hf"]
@@ -662,6 +853,10 @@ def main() -> int:
                              ("fused_control_step_T_hf", "K2 'T' hf", HF_TOLERANCES)):
         ok_k, errs[name], outs[name] = check(name, label, args[name], tol)
         ok &= ok_k
+    ok_k, err_ft, _ = check("fused_control_step_hf", "K3 finetune course", ft_args, HF_TOLERANCES)
+    ok &= ok_k and same_build and near_ft >= NUM_ENVS // 4
+    errs["fused_control_step_hf"] = max(errs["fused_control_step_hf"], err_ft)
+    del finetune, ft_args
     # the ragged edge: the last block computes envs beyond B and stores none
     for B in RAGGED_ENVS:
         ok &= check("fused_control_step", f"K1 B={B}", rand_batch(8, B, device), TOLERANCES)[0]
@@ -690,7 +885,7 @@ def main() -> int:
     torch.cuda.synchronize()
     if not ok or near < NUM_ENVS // 4:
         log("[check] FAIL: a kernel disagrees with its plain version (or too few bases at "
-            "gap edges)")
+            "gap edges, or a stage's spec names another build)")
         return 1
 
     if stop_after == "check":
@@ -741,14 +936,22 @@ def main() -> int:
     # ---- 6. the main paths: counters 0 just before each, read just after
     trained, launches = {}, {}
     smoke_root = os.path.join(LEGGED_GYM_TORCH_ROOT_DIR, "logs", "chip_smoke_go2_stiction")
-    shutil.rmtree(smoke_root, ignore_errors=True)   # resume and play load its newest run
-    for task, name, log_root in (("go2_parkour", "fused_control_step_hf", "default"),
+    parkour_root = os.path.join(LEGGED_GYM_TORCH_ROOT_DIR, "logs", "chip_smoke_go2_parkour")
+    for root in (smoke_root, parkour_root):   # resume, play and the ladder load runs from here
+        shutil.rmtree(root, ignore_errors=True)
+    for task, name, log_root in (("go2_parkour", "fused_control_step_hf", parkour_root),
                                  ("go2", "fused_control_step", "default"),
                                  ("go2_stiction", "fused_control_step_stiction", smoke_root)):
         result = train_task(task, variants[name], log_root=log_root)
         if result is None:
             return 1
-        trained[task], _, launches[name] = result
+        trained[task], _, launches[name], _ = result
+        if task == "go2_parkour":
+            more = ladder_path(variants[name], parkour_root,
+                               os.path.basename(trained[task].log_dir), smi)
+            if more is None:
+                return 1
+            launches[name] += more
     more = stiction_path(device, variants["fused_control_step_stiction"], smoke_root)
     if more is None:
         return 1

@@ -11,17 +11,18 @@ legged_robot.py:67-100): clip actions -> decimated physics -> derived
 quantities -> feet/phase update -> callback (command resample / heading /
 pushes) -> termination -> rewards -> masked reset -> observations.
 
-Ported so far: the flat plane, and heightfield terrain (mesh_type
-'heightfield' or 'trimesh') with custom origins, the terrain curriculum,
-scandot heights and the parkour hole termination.  The command curriculum,
-progress-stall termination and stateful actuator models come with later
-slices; a config asking for one of them raises NotImplementedError at
+Ported: the flat plane, and heightfield terrain (mesh_type 'heightfield'
+or 'trimesh') with custom origins, the terrain and command curricula,
+scandot heights, the parkour hole termination, and the parkour stages'
+course-progress tracking (`max_x`, the progress-stall termination and the
+spawn curriculum).  Stateful actuator models come with a later slice; a
+config asking for an actuator network raises NotImplementedError at
 construction.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +68,8 @@ class EnvState:
     terrain_types: torch.Tensor           # (B,) int64
     env_origins: torch.Tensor             # (B, 3)
     episode_sums: torch.Tensor            # (B, n_reward_terms)
+    max_x: torch.Tensor                   # (B,) largest base x of the episode so far
+    stall_time: torch.Tensor              # (B,) s under a moving command without new ground
     command_ranges: torch.Tensor          # (4, 2) [vx, vy, wz, heading]
     dr: DomainRandParams                  # batch-leading per-env params
     rng: torch.Generator
@@ -88,6 +91,18 @@ def terrain_types(num_envs: int, num_cols: int) -> np.ndarray:
     return q.astype(np.int64)
 
 
+class ResetDraws(NamedTuple):
+    """The random draws of a reset (JAX base_env.py:530-555): the fields the
+    config does not ask for are None."""
+
+    dof_off: torch.Tensor             # (B, ndof) U(0, 0.9) added to the default angles
+    vel6: torch.Tensor                # (B, 6) U(-0.5, 0.5) linear and angular velocity
+    xy: Optional[torch.Tensor]        # (B, 2) U(-1, 1) on custom origins
+    x_slot: Optional[torch.Tensor]    # (B,) one of init_state.rand_x_offsets
+    x_jitter: Optional[torch.Tensor]  # (B,) U(init_state.rand_x_jitter)
+    vx: Optional[torch.Tensor]        # (B,) U(init_state.rand_vx_range)
+
+
 class LeggedEnv:
     """Static env builder; `reset_all` and `step` return new states."""
 
@@ -95,10 +110,6 @@ class LeggedEnv:
                  terrain_seed: int = 0):
         self.device = resolve_device(device)
         self.cfg = cfg
-        if cfg.commands.curriculum:
-            raise NotImplementedError("the command curriculum is not ported yet")
-        if float(getattr(getattr(cfg, "termination", None), "stall_time_s", 0.0) or 0.0) > 0:
-            raise NotImplementedError("progress-stall termination is not ported yet")
         if getattr(cfg.control, "use_actuator_network", False):
             raise NotImplementedError("actuator networks are not ported yet")
 
@@ -279,6 +290,13 @@ class LeggedEnv:
             jump_zone_fwd_gate=getattr(r, "jump_zone_fwd_gate", 0.0),
         )
 
+        # progress-stall termination (JAX base_env.py:265-272): under a moving
+        # command, `stall_time_s` seconds without new course ground end the
+        # episode as a death; 0 turns it off
+        term_cfg = getattr(cfg, "termination", None)
+        self.stall_time_s = float(getattr(term_cfg, "stall_time_s", 0.0) or 0.0)
+        self.stall_min_vel = float(getattr(term_cfg, "stall_min_vel", 0.2))
+
         self.obs_scales = cfg.normalization.obs_scales
         self.commands_scale = f32(
             [self.obs_scales.lin_vel, self.obs_scales.lin_vel, self.obs_scales.ang_vel])
@@ -293,6 +311,13 @@ class LeggedEnv:
             pos=f32(init.pos), quat=f32([rw, rx, ry, rz]),
             lin_vel=f32(init.lin_vel), ang_vel=f32(init.ang_vel),
         )
+        # spawn curriculum (JAX base_env.py:521-527): spawns spread over course
+        # slots with uniform jitter, and an initial forward velocity
+        x_offsets = getattr(init, "rand_x_offsets", None)
+        self.spawn_x_slots = f32(x_offsets) if x_offsets else None
+        self.spawn_x_jitter = tuple(getattr(init, "rand_x_jitter", (0.0, 0.0)))
+        vx_range = getattr(init, "rand_vx_range", None)
+        self.spawn_vx_range = None if vx_range is None else tuple(vx_range)
 
     def _vstep(self, physics: PhysicsState, actions, dr: DomainRandParams):
         """Run the engine from batch-leading env tensors.
@@ -386,7 +411,8 @@ class LeggedEnv:
         return torch.where(small[:, None], 0.0, legs)
 
     def _check_termination(self, state: EnvState, derived):
-        """legged_robot.py:141-154, plus the parkour hole check (go2.py:200-204)."""
+        """legged_robot.py:141-154, plus the parkour hole check (go2.py:200-204)
+        and the progress stall (JAX base_env.py:446-449)."""
         f = derived["link_forces"][:, self.termination_ids, :]
         contact_term = torch.any(torch.linalg.norm(f, dim=-1) > 1.0, dim=1)
         time_out = state.episode_length > self.max_episode_length
@@ -394,6 +420,9 @@ class LeggedEnv:
         reset = contact_term | time_out | upside_down
         if getattr(self.cfg.terrain, "parkour", False):
             reset = reset | (state.physics.base_pos[:, 2] < -1.0)
+        if self.stall_time_s > 0.0:
+            # a death, not a time_out: PPO does not bootstrap past a balk
+            reset = reset | (state.stall_time > self.stall_time_s)
         return reset, time_out
 
     def _initial_origins(self, gen):
@@ -450,19 +479,44 @@ class LeggedEnv:
 
     def _sample_reset_physics(self, state: EnvState, gen, origins) -> PhysicsState:
         """New dof/root states for (potentially) resetting envs
-        (legged_robot.py:481-532)."""
+        (legged_robot.py:481-532, JAX base_env.py:517-564)."""
+        return self._assemble_reset(self._draw_reset(gen), origins)
+
+    def _draw_reset(self, gen) -> ResetDraws:
+        """The random draws of a reset, from the env's generator."""
         B = self.num_envs
-        dof_pos = self.default_dof_pos + self._uniform(gen, (B, self.model.num_dof), 0.0, 0.9)
+        dof_off = self._uniform(gen, (B, self.model.num_dof), 0.0, 0.9)
         vel6 = self._uniform(gen, (B, 6), -0.5, 0.5)
+        xy = self._uniform(gen, (B, 2), -1.0, 1.0) if self.custom_origins else None
+        x_slot = x_jitter = vx = None
+        if self.spawn_x_slots is not None:
+            slots = self.spawn_x_slots
+            x_slot = slots[torch.randint(0, len(slots), (B,), generator=gen, device=self.device)]
+            x_jitter = self._uniform(gen, (B,), *self.spawn_x_jitter)
+        if self.spawn_vx_range is not None:
+            vx = self._uniform(gen, (B,), *self.spawn_vx_range)
+        return ResetDraws(dof_off, vel6, xy, x_slot, x_jitter, vx)
+
+    def _assemble_reset(self, d: ResetDraws, origins) -> PhysicsState:
+        """The reset states from the draws and the origins: base at the
+        initial position over its origin, moved by the xy jitter and by its
+        spawn slot plus slot jitter; the initial forward velocity replaces
+        the drawn vx.  Deterministic, in the reference's float32 order."""
         pos = self.base_init["pos"] + origins
-        if self.custom_origins:
-            xy = self._uniform(gen, (B, 2), -1.0, 1.0)
-            pos = pos + torch.cat([xy, torch.zeros_like(xy[:, :1])], dim=1)
+        zero = torch.zeros_like(pos[:, :1])
+        if d.xy is not None:
+            pos = pos + torch.cat([d.xy, zero], dim=1)
+        if d.x_slot is not None:
+            pos = pos + torch.cat([(d.x_slot + d.x_jitter)[:, None], zero, zero], dim=1)
+        lin_vel = d.vel6[:, 0:3]
+        if d.vx is not None:
+            lin_vel = torch.cat([d.vx[:, None], lin_vel[:, 1:]], dim=1)
+        dof_pos = self.default_dof_pos + d.dof_off
         return PhysicsState(
             base_pos=pos,
-            base_quat=self.base_init["quat"].expand(B, 4),
-            lin_vel=vel6[:, 0:3],
-            ang_vel=vel6[:, 3:6],
+            base_quat=self.base_init["quat"].expand(pos.shape[0], 4),
+            lin_vel=lin_vel,
+            ang_vel=d.vel6[:, 3:6],
             dof_pos=dof_pos,
             dof_vel=torch.zeros_like(dof_pos),
         )
@@ -523,6 +577,29 @@ class LeggedEnv:
         origins = self.terrain_origins[levels, state.terrain_types]
         return levels, _where(reset_mask, origins, state.env_origins)
 
+    def _update_command_curriculum(self, state: EnvState, reset_mask) -> torch.Tensor:
+        """Widen the lin_vel_x range when the resetting envs tracked it well
+        (go2.py:80-107, JAX base_env.py:621-648), on the steps where
+        common_step % max_episode_length == 0 (go2.py:222)."""
+        cfg = self.cfg.commands
+        cr = state.command_ranges
+        if not cfg.curriculum or "tracking_lin_vel" not in self.reward_names or \
+                state.common_step % self.max_episode_length != 0:
+            return cr
+        idx = self.episode_sum_names.index("tracking_lin_vel")
+        term_scale = next(s for n, _, s in self.reward_terms if n == "tracking_lin_vel")
+        cnt = torch.clamp(reset_mask.sum(), min=1)
+        mean_rew = torch.where(reset_mask, state.episode_sums[:, idx], 0.0).sum() / cnt \
+            / self.max_episode_length
+        delta = cfg.vel_increment
+        if cfg.max_reverse_vel < 0.0:
+            lo = torch.clamp(cr[0, 0] - delta, cfg.max_reverse_vel, 0.0)
+        else:
+            lo = torch.clamp(cr[0, 0] - delta, min=cfg.max_reverse_vel)
+        hi = torch.clamp(cr[0, 1] + delta, 0.0, cfg.max_forward_vel)
+        apply = (mean_rew > 0.8 * term_scale) & reset_mask.any()
+        return torch.cat([torch.where(apply, torch.stack([lo, hi]), cr[0])[None], cr[1:]])
+
     # ------------------------------------------------------------------
     # Heights (legged_robot.py:997-1032)
     # ------------------------------------------------------------------
@@ -574,11 +651,14 @@ class LeggedEnv:
             terrain_types=types,
             env_origins=origins,
             episode_sums=zeros(B, len(self.episode_sum_names)),
+            max_x=zeros(B),
+            stall_time=zeros(B),
             command_ranges=cr,
             dr=dr,
             rng=gen,
         )
-        state = state.replace(physics=self._sample_reset_physics(state, gen, origins))
+        physics = self._sample_reset_physics(state, gen, origins)
+        state = state.replace(physics=physics, max_x=physics.base_pos[:, 0])
         state = state.replace(
             commands=self._resample_commands(state, gen, torch.ones(B, dtype=torch.bool, device=dev)))
         if init_at_random_ep_len:
@@ -644,9 +724,20 @@ class LeggedEnv:
             link_forces=info.link_forces,
         )
 
+        # ---- course progress and stall (JAX base_env.py:796-806): the new
+        # ground beyond the episode's largest x, and how long a moving
+        # command has gained less than stall_min_vel of it
+        base_x = ph.base_pos[:, 0]
+        progress = torch.clamp(base_x - state.max_x, min=0.0) / self.dt
+        max_x = torch.maximum(state.max_x, base_x)
+        stalled = (torch.linalg.norm(commands[:, :3], dim=1) >= 0.2) & \
+            (progress < self.stall_min_vel)
+        stall_time = torch.where(stalled, state.stall_time + self.dt, 0.0)
+
         # ---- termination (go2.py:186-204) ----
         state_mid = state_pre.replace(physics=ph, commands=commands,
-                                      measured_heights=measured_heights)
+                                      measured_heights=measured_heights, max_x=max_x,
+                                      stall_time=stall_time)
         reset_buf, time_out_buf = self._check_termination(state_mid, derived)
 
         # ---- rewards (legged_robot.py:216-237) ----
@@ -677,6 +768,7 @@ class LeggedEnv:
             jump_flags=state.jump_flags,
             reset_buf=reset_buf,
             time_out_buf=time_out_buf,
+            progress=progress,
         )
         rew_buf = torch.zeros(B, device=self.device)
         terms = []
@@ -698,6 +790,9 @@ class LeggedEnv:
 
         # ---- masked reset (reset_idx, go2.py:207-263) ----
         levels, origins = self._update_terrain_curriculum(state_mid, gen, reset_buf)
+        command_ranges = self._update_command_curriculum(
+            state_mid.replace(episode_sums=episode_sums), reset_buf)
+        state_mid = state_mid.replace(command_ranges=command_ranges)
         reset_physics = self._sample_reset_physics(state_mid, gen, origins)
         ph = PhysicsState(*[_where(reset_buf, new, old) for new, old in zip(reset_physics, ph)])
         commands = self._resample_commands(state_mid.replace(physics=ph), gen, reset_buf)
@@ -710,6 +805,9 @@ class LeggedEnv:
         last_contacts = _where(reset_buf, torch.zeros_like(last_contacts), last_contacts)
         last_contact_heights = _where(reset_buf, torch.zeros_like(last_contact_heights),
                                       last_contact_heights)
+        # envs that reset restart their progress tracking at the respawn x
+        max_x = torch.where(reset_buf, ph.base_pos[:, 0], max_x)
+        stall_time = torch.where(reset_buf, 0.0, stall_time)
         # per-env episode sums of the envs that reset this step; the runner
         # reduces them once per iteration (go2.py:245-263)
         episode_contrib = _where(reset_buf, episode_sums, torch.zeros_like(episode_sums))
@@ -733,6 +831,8 @@ class LeggedEnv:
             terrain_levels=levels,
             env_origins=origins,
             episode_sums=episode_sums,
+            max_x=max_x,
+            stall_time=stall_time,
         )
         new_state, obs = self._compute_observations(new_state, derived, gen)
 

@@ -5,10 +5,11 @@ Each term is a batched function of a `RewardCtx` and the task's
 (scale * dt, zero scales dropped) and sums the terms with positive clipping
 and the termination-after-clip rule (reference legged_robot.py:216-237).
 
-Ported so far: the terms the flat `go2` and `go2_parkour` tasks scale
-(go2_config.py, go2_parkour_config.py rewards.scales) plus every term the
-base config switches on, and `termination`.  The progress, biped and
-humanoid terms come with their tasks.
+Ported so far: the terms the flat `go2` task and the go2_parkour stages
+scale (go2_config.py, go2_parkour_config.py rewards.scales), among them
+`progress` and `feet_contact_forces`, plus every term the base config
+switches on, `min_height` and `termination`.  The biped and humanoid terms
+come with their robots.
 """
 from __future__ import annotations
 
@@ -81,6 +82,8 @@ class RewardCtx(NamedTuple):
     jump_flags: torch.Tensor        # (B,)
     reset_buf: torch.Tensor         # (B,) bool
     time_out_buf: torch.Tensor      # (B,) bool
+    # new-ground rate (m/s): clip(base_x - the episode's max x so far, 0) / dt
+    progress: torch.Tensor          # (B,)
 
 
 def _sq_sum(x):
@@ -123,6 +126,11 @@ def _reward_collision(ctx, s):
 
 def _reward_termination(ctx, s):
     return (ctx.reset_buf & ~ctx.time_out_buf).float()
+
+
+def _reward_contact_forces(ctx, s):
+    f = torch.linalg.norm(ctx.link_forces[:, s.feet_ids, :], dim=-1)
+    return torch.sum(torch.clamp(f - s.max_contact_force, min=0.0), dim=1)
 
 
 def _reward_tracking_lin_vel(ctx, s):
@@ -206,12 +214,16 @@ def _wrap_to_pi(x):
     return torch.remainder(x + math.pi, 2 * math.pi) - math.pi
 
 
+def _moving(ctx):
+    """1 where the command asks for motion (|cmd| >= 0.2), else 0."""
+    return (torch.linalg.norm(ctx.commands[:, :3], dim=1) >= 0.2).float()
+
+
 def _reward_heading_alignment(ctx, s):
     desired = (_wrap_to_pi(ctx.commands[:, 3]) if s.heading_command
                else torch.zeros_like(ctx.heading))
     err = _wrap_to_pi(desired - ctx.heading)
-    moving = (torch.linalg.norm(ctx.commands[:, :3], dim=1) >= 0.2).float()
-    return torch.square(err) * moving
+    return torch.square(err) * _moving(ctx)
 
 
 def _reward_reverse_penalty(ctx, s):
@@ -221,7 +233,7 @@ def _reward_reverse_penalty(ctx, s):
 def _jump_motion_gate(ctx, s):
     """The command mask (reference go2.py:778,791), and optionally the
     actual forward velocity above `jump_zone_fwd_gate`."""
-    moving = (torch.linalg.norm(ctx.commands[:, :3], dim=1) >= 0.2).float()
+    moving = _moving(ctx)
     if s.jump_zone_fwd_gate > 0.0:
         moving = moving * (ctx.world_lin_vel[:, 0] > s.jump_zone_fwd_gate).float()
     return moving
@@ -235,6 +247,17 @@ def _reward_jump_zone_forward_vel(ctx, s):
 def _reward_jump_zone_upward_vel(ctx, s):
     up = torch.clamp(ctx.world_lin_vel[:, 2], min=0.0)
     return up * (ctx.jump_flags > 0.0).float() * _jump_motion_gate(ctx, s)
+
+
+def _reward_progress(ctx, s):
+    """New-ground bonus: pays only for course x not reached before in this
+    episode, so pacing or bobbing at a gap edge earns nothing."""
+    return ctx.progress * _moving(ctx)
+
+
+def _reward_min_height(ctx, s):
+    z_err = torch.clamp(s.base_height_target - ctx.base_pos[:, 2], 0.0, s.base_height_target)
+    return z_err * (ctx.jump_flags > 0.0).float()
 
 
 REWARD_REGISTRY: Dict[str, Callable] = {
@@ -263,4 +286,8 @@ REWARD_REGISTRY: Dict[str, Callable] = {
     "reverse_penalty": _reward_reverse_penalty,
     "jump_zone_forward_vel": _reward_jump_zone_forward_vel,
     "jump_zone_upward_vel": _reward_jump_zone_upward_vel,
+    "contact_forces": _reward_contact_forces,
+    "feet_contact_forces": _reward_contact_forces,
+    "progress": _reward_progress,
+    "min_height": _reward_min_height,
 }

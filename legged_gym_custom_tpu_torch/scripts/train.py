@@ -6,6 +6,8 @@ Usage: python -m legged_gym_custom_tpu_torch.scripts.train --task go2
 
 `--resume` loads the newest checkpoint of the newest run of the experiment
 (or the one `--load_run` / `--checkpoint` name) and goes on from its iteration.
+A task whose config sets `runner.resume` (the go2_parkour stages after the
+first: `--task go2_parkour_finetune`, ...) resumes so without the flag.
 
 Runs on the GPU unless `--device cpu` is given; with no GPU it raises
 rather than falling back to the CPU.
@@ -36,9 +38,11 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def train(args, log_root="default"):
-    """Build the env and runner and train; returns (runner, per-iteration history)."""
-    env, _ = task_registry.make_env(name=args.task, args=args, device=args.device)
+def train(args, log_root="default", env_cfg=None):
+    """Build the env (from `env_cfg` if given, else the task's config) and
+    the runner, and train; returns (runner, per-iteration history)."""
+    env, _ = task_registry.make_env(name=args.task, args=args, env_cfg=env_cfg,
+                                    device=args.device)
     runner, train_cfg = task_registry.make_alg_runner(env=env, name=args.task, args=args,
                                                       log_root=log_root)
     history = runner.learn(num_learning_iterations=train_cfg.runner.max_iterations,

@@ -116,20 +116,18 @@ def test_go2_reset_and_steps_match_reference():
 
 
 def test_go2_env_raises_for_what_is_not_ported():
-    """The command curriculum, progress-stall termination and actuator
-    networks raise NotImplementedError at construction."""
+    """Only actuator networks still raise NotImplementedError at
+    construction; the command curriculum and progress-stall termination
+    build."""
     cfg = _cfg(Go2Cfg)
     cfg.commands.curriculum = True
-    with pytest.raises(NotImplementedError, match="command curriculum"):
-        Go2Env(cfg, SYNTHETIC_GO2_URDF, device="cpu")
 
     class termination:
         stall_time_s = 2.0
 
-    cfg = _cfg(Go2Cfg)
     cfg.termination = termination()
-    with pytest.raises(NotImplementedError, match="stall"):
-        Go2Env(cfg, SYNTHETIC_GO2_URDF, device="cpu")
+    env = Go2Env(cfg, SYNTHETIC_GO2_URDF, device="cpu")
+    assert env.stall_time_s == 2.0 and env.cfg.commands.curriculum
     cfg = _cfg(Go2Cfg)
     cfg.control.use_actuator_network = True
     with pytest.raises(NotImplementedError, match="actuator network"):

@@ -145,6 +145,30 @@ def test_heightfield_kernel_matches_plain_version(parkour_env):
 
 
 @pytest.mark.cuda
+def test_heightfield_kernel_on_the_finetune_composite_course(parkour_env):
+    """K3 on the finetune stages' course (0.10-0.35 m platforms between
+    gaps), a quarter of the bases within 0.3 m of a platform face or a gap
+    edge: the stage's spec builds the go2_parkour library, no other."""
+    cfg, _ = task_registry.get_cfgs("go2_parkour_finetune")
+    cfg.env.num_envs = B
+    env, _ = task_registry.make_env("go2_parkour_finetune", env_cfg=cfg, device="cuda")
+    spec = env.fused_spec
+    assert spec == parkour_env.fused_spec
+    lanes = fused_step.lanes_per_branch_for(spec)
+    assert fused_step.library_key(spec, lanes) == fused_step.library_key(parkour_env.fused_spec,
+                                                                         lanes)
+    assert env.terrain.height_field_raw.max() == 70    # +0.35 m
+    state, actions, dr = _parkour_batch(env, 13)
+    terrain = fused_step.patch_inputs(patch.extract(env.hf, state[0][0], state[0][1], spec.hf_K))
+    before = fused_step.fused_control_step.hf_launches
+    out = fused_step.fused_control_step(spec, state, actions, dr, terrain)
+    torch.cuda.synchronize()
+    assert fused_step.fused_control_step.hf_launches == before + 1
+    ref = fused_step.plain_control_step(spec, state, actions, dr, terrain)
+    _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]), HF_TOL)
+
+
+@pytest.mark.cuda
 def test_engine_on_card_runs_the_heightfield_kernel_and_matches_eager(parkour_env):
     """`physics.control_step` on a heightfield cuts the windows and launches
     K3 once, and agrees with the eager engine (whose windows are sampled by
