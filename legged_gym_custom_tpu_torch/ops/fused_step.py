@@ -729,13 +729,27 @@ def _ilist(x):
 
 @functools.lru_cache(maxsize=None)
 def lanes_per_branch_for(spec: FusedSpec) -> int:
-    """The kernel's layout for a spec: a pair of lanes of a warp per branch of
-    the tree (both walk the branch, each takes half of a body's spheres)
-    wherever the pairs fit a warp, else one lane per branch.  On an NVIDIA
-    H100 80GB HBM3 at a 700 W power limit the pair is the faster for the
-    quadruped at the 4096 envs every config runs (PERF.md section 6)."""
+    """The kernel's layout for a spec up to PAIR_MAX_ENVS envs: a pair of
+    lanes of a warp per branch of the tree (both walk the branch, each takes
+    half of a body's spheres) wherever the pairs fit a warp, else one lane
+    per branch.  On an NVIDIA H100 80GB HBM3 at a 700 W power limit the pair
+    is the faster for the quadruped at the 4096 envs every config runs and
+    at MPPI's 128 rollouts (PERF.md section 6)."""
     n_branches = len(lane_plan_lib.branches([int(p) for p in spec.parent]))
     return 2 if 2 * n_branches <= lane_plan_lib.MAX_LANES else 1
+
+
+# Above this many envs a launch runs one lane per branch: the pair's grid then
+# outgrows one wave of resident blocks (Go2 on an H100: 132 SMs x 3 blocks x
+# 16 envs), and one lane per leg was the faster at 8192-65536 envs
+# (PERF.md section 6).
+PAIR_MAX_ENVS = 4096
+
+
+def lanes_for_batch(spec: FusedSpec, batch: int) -> int:
+    """The wrapper's layout for `batch` envs: the spec's up to PAIR_MAX_ENVS,
+    one lane per branch above."""
+    return lanes_per_branch_for(spec) if batch <= PAIR_MAX_ENVS else 1
 
 
 def spec_header(spec: FusedSpec, lanes_per_branch: int = 1) -> str:
@@ -865,11 +879,12 @@ class KernelBuild:
         return kernel
 
 
-def load_kernel(spec: FusedSpec) -> FusedKernel:
-    """The kernel library for `spec` in the wrapper's layout, built at first
-    use (or taken from a `KernelBuild` finished before)."""
-    kernel = _KERNELS.get((spec, lanes_per_branch_for(spec)))
-    return kernel if kernel is not None else KernelBuild(spec).finish()
+def load_kernel(spec: FusedSpec, batch: int) -> FusedKernel:
+    """The kernel library for `spec` in the wrapper's layout for `batch` envs,
+    built at first use (or taken from a `KernelBuild` finished before)."""
+    lanes = lanes_for_batch(spec, batch)
+    kernel = _KERNELS.get((spec, lanes))
+    return kernel if kernel is not None else KernelBuild(spec, lanes).finish()
 
 
 def launch_info(kernel: FusedKernel, B: int) -> dict:
@@ -988,9 +1003,9 @@ def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
     float32 and contiguous.
     Returns ((pos, quat, lin, ang, q, qd), link_forces (nl,3,B), torques (ndof,B)).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream, adding one to the variant's counter (`launch_counts`), or
-    raise.
+    CPU tensors run the plain version; CUDA tensors launch the kernel, in the
+    layout `lanes_for_batch` picks for B, on the current stream, adding one
+    to the variant's counter (`launch_counts`), or raise.
     """
     check_covered(spec)
     B, device = _check_inputs(spec, state, actions, dr, terrain)
@@ -998,7 +1013,7 @@ def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
         return plain_control_step(spec, state, actions, dr, terrain)
     if device.type != "cuda":
         raise RuntimeError(f"fused_control_step: unsupported device {device}")
-    kernel = load_kernel(spec)
+    kernel = load_kernel(spec, B)
     outs = launch_kernel(kernel, spec, state, actions, dr, terrain)
     if spec.control_type == "T" or spec.fl_dqd:
         name = variant_name(spec)

@@ -1,0 +1,63 @@
+"""Profiling / tracing utilities, torch port of
+legged_gym_custom_tpu/utils/profiling.py: a torch.profiler trace around a
+block, per-section wall-clock timing synchronized with the card, and the
+card's memory statistics."""
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Dict
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a host + device trace around a code block into `log_dir`
+    (`<worker>.<time>.pt.trace.json`, read by TensorBoard's profiler plugin
+    and by Perfetto).  Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+class SectionTimer:
+    """Blocking wall-clock timer for named sections (device-synchronized)."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def section(self, name: str, sync_on=None):
+        """Time the block; with a CUDA tensor as `sync_on`, wait for its
+        device to finish the work queued in the block first."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if isinstance(sync_on, torch.Tensor) and sync_on.is_cuda:
+                torch.cuda.synchronize(sync_on.device)
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def report(self) -> str:
+        lines = []
+        for name in sorted(self.totals):
+            n = self.counts[name]
+            tot = self.totals[name]
+            lines.append(f"{name}: total {tot:.3f}s, {n}x, mean {tot / n * 1e3:.2f} ms")
+        return "\n".join(lines)
+
+
+def device_memory_stats() -> Dict[str, int]:
+    """The byte counters of `torch.cuda.memory_stats()` on the current card,
+    or {} without one."""
+    if not torch.cuda.is_available():
+        return {}
+    return {k: v for k, v in torch.cuda.memory_stats().items() if "bytes" in k}

@@ -250,14 +250,19 @@ def test_library_key_follows_the_plan(urdfs):
 
 @pytest.mark.parametrize("model", MODELS)
 def test_layout_follows_from_the_spec(urdfs, model):
-    """The wrapper's layout is a pair of lanes per branch wherever the pairs
-    fit a warp (every model here), and one lane per branch beyond 16 branches;
-    the batch size has no say."""
+    """The spec's layout is a pair of lanes per branch wherever the pairs fit
+    a warp (every model here), and one lane per branch beyond 16 branches; the
+    wrapper takes it up to PAIR_MAX_ENVS envs and one lane per branch above."""
     spec = _spec(urdfs, model)
     assert fused_step.lanes_per_branch_for(spec) == 2
+    for batch in (1, 128, fused_step.PAIR_MAX_ENVS):
+        assert fused_step.lanes_for_batch(spec, batch) == 2
+    for batch in (fused_step.PAIR_MAX_ENVS + 1, 65536):
+        assert fused_step.lanes_for_batch(spec, batch) == 1
     assert lane_plan.lane_plan(spec, 2).G == 2 * lane_plan.lane_plan(spec, 1).G
     star = spec._replace(parent=(-1,) + (0,) * 17)     # 17 branches: 34 lanes would not fit
     assert fused_step.lanes_per_branch_for(star) == 1
+    assert fused_step.lanes_for_batch(star, 128) == 1
     with pytest.raises(ValueError):
         lane_plan.lane_plan(star._replace(parent=(-1,) + (0,) * 33))
 
