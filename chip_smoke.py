@@ -45,7 +45,9 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                from the plan-walking step of the tests; K1 also at B = 1024
                and 16384; and K1 in turns within this call at a lane per leg
                (G = 4) against a pair of lanes per leg (G = 8), at MPPI's
-               batches B*K = 128 and 65536 and at 4096-16384 envs;
+               batches B*K = 128 and 65536 and at 4096-16384 envs, with K1's
+               bound at 65536 rollouts in the layout the wrapper runs there
+               (G = 4);
   5. closed loop - 25 control steps of K1, K3 and the stiction kernel, each
                beside its plain version from one seeded batch of 1024 envs
                under one action sequence (K3 on the go2_parkour terrain, its
@@ -89,7 +91,25 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                spec; a 'V'-control solver must raise and launch nothing.
                Counters 0 before each run, read after: a solve adds exactly H
                launches to K1 (K3 on the pit course), a control step one, a
-               reset_all one, and no other counter moves.
+               reset_all one, and no other counter moves;
+  9. deploy  - the card's kernels against MuJoCo without MuJoCo on the card:
+               the drop of tests/test_torch_sim_parity.py (0.36 m, zero
+               actions, 150 control steps) on 64 identical envs through
+               `physics.control_step` with the go2 env's spec (K1) and the
+               go2_stiction env's (K2 stiction), both phase 2's builds; every
+               env bit-equal; env 0 against the committed MuJoCo trajectory
+               (legged_gym_custom_tpu_torch/resources/oracle/) at that test's
+               gates (full plant: settle 1 cm, joints 0.05 rad, transient
+               2 cm; rest stiction: joints 0.02 rad and closer than K1's tanh,
+               at rest), the gaps printed; phase 6's exported bundle in three
+               runtimes on 256 observations of a go2_stiction env on the card
+               (torch on the card, numpy, the native C++ runtime built here
+               with g++): torch-numpy within 1e-4, native-numpy within 1e-5,
+               each runtime's median microseconds per 50 Hz call and the
+               build seconds; `scripts.control_and_play --task go2 --load_run
+               <phase 6's go2 run> --steps 50`: exactly 51 K1 launches and no
+               other kernel; no kernel library is built in the phase.  It
+               imports neither mujoco nor yaml.
 Then it prints the kernels' JSON line, the card's line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -133,6 +153,13 @@ MPPI_ROLLOUTS, MPPI_ROBOT_ROLLOUTS = 4096 * 16, 8 * 16
 CLOSED_LOOP_TICKS = 200
 STAND_TICKS, PIT_TICKS = 100, 50
 RAGGED_ENVS = (100, 1000)      # neither fills its last block
+# phase 9: identical envs of the MuJoCo drops; observations for the three
+# runtimes and the steps into an episode they are taken at; the gates of
+# tests/test_native_runtime.py and phase 6; control_and_play's steps
+DROP_ENVS = 64
+DEPLOY_OBS, DEPLOY_WARM_STEPS = 256, 4
+DEPLOY_TORCH_GATE, DEPLOY_NATIVE_GATE = 1e-4, 1e-5
+CONTROL_STEPS = 50
 TREE_K, TREE_HS = 8, 0.1       # the test tree's window
 SOURCE = "legged_gym_custom_tpu_torch/ops/csrc/fused_step.cu"
 REFERENCE = "legged_gym_custom_tpu/ops/fused_step.py"
@@ -419,9 +446,7 @@ def time_kernel(label, spec, args, out_k):
     step that walks the lane plan at one lane per branch (nothing computed
     twice); the plain version's count, with dense 6x6 inertias and dense
     joint rotations, is printed beside it and bounds nothing."""
-    import torch_plan_step
-
-    from legged_gym_custom_tpu_torch.ops import fused_step, lane_plan
+    from legged_gym_custom_tpu_torch.ops import fused_step
 
     call = lambda: fused_step.fused_control_step(spec, *args)
     ms = cuda_time_ms(call, reps=50, ahead_ms=AHEAD_MS)
@@ -429,9 +454,29 @@ def time_kernel(label, spec, args, out_k):
     plain_reps = 5
     plain_ms = cuda_time_ms(lambda: fused_step.plain_control_step(spec, *args),
                             reps=plain_reps, warmup=1)
+    b = kernel_bound(spec, args, (*out_k[0], out_k[1], out_k[2]))
+    B = args[1].shape[-1]
+    log(f"[timing] {label} B={B}: {ms:.4f} ms on the card (median of 50, launches queued "
+        f"ahead), {host_ms:.4f} ms a call at the wrapper's pace; plain {plain_ms:.2f} ms "
+        f"(median of {plain_reps}); {b['bytes']} bytes, {b['ops']} fp32 ops of the kernel's "
+        f"algorithm ({b['ops'] // B} an env; the plain version does {b['plain_ops'] // B}) -> "
+        f"bound {b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bytes_ms']:.5f} ms bytes, "
+        f"{b['ops_ms']:.5f} ms ops); {ms / b['bound_ms']:.1f}x the bound")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+
+
+def kernel_bound(spec, args, outs) -> dict:
+    """The least time the card could take for a control step on `args`
+    (state, actions, dr[, terrain]) giving `outs`: each input read and each
+    output written once over the memory rate, against the operations of the
+    kernel's algorithm, counted on one env from the tests' step that walks
+    the lane plan at one lane per branch, over the fp32 peak."""
+    import torch_plan_step
+
+    from legged_gym_custom_tpu_torch.ops import fused_step, lane_plan
+
     state, actions, dr = args[:3]
     terrain = args[3] if len(args) > 3 else None
-    outs = (*out_k[0], out_k[1], out_k[2])
     tensors = (*state, actions, *dr, *(terrain or ()), *outs)
     n_bytes = sum(t.numel() * t.element_size() for t in tensors)
     one = lambda ts: tuple(t[..., :1].contiguous().cpu() for t in ts)
@@ -443,15 +488,9 @@ def time_kernel(label, spec, args, out_k):
     ops = count_operations(torch_plan_step.plan_control_step, spec, plan, *one_env) * B
     plain_ops = count_operations(fused_step.plain_control_step, spec, *one_env) * B
     bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    log(f"[timing] {label} B={B}: {ms:.4f} ms on the card (median of 50, launches queued "
-        f"ahead), {host_ms:.4f} ms a call at the wrapper's pace; plain {plain_ms:.2f} ms "
-        f"(median of {plain_reps}); {n_bytes} bytes, {ops} fp32 ops of the kernel's algorithm "
-        f"({ops // B} an env; the plain version does {plain_ops // B}) -> bound {bound_ms:.5f} ms "
-        f"by {bound_by} ({bytes_ms:.5f} ms bytes, {ops_ms:.5f} ms ops); {ms / bound_ms:.1f}x the "
-        f"bound")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(bytes=n_bytes, ops=ops, plain_ops=plain_ops, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def only_launched(what: str, variant: str, expected: int) -> bool:
@@ -523,13 +562,27 @@ def train_task(task: str, variant: str, iterations: int = TRAIN_ITERATIONS, firs
     return runner, history, launches, printed.getvalue()
 
 
+def numpy_runtime(bundle_path: str, nets):
+    """The numpy deploy runtime on a bundle, as `deploy.BaseController` runs
+    it: (observation, scan) -> actions; `nets` gives the history's shape."""
+    from legged_gym_custom_tpu_torch.deploy import (NumpyAdaptationEncoder, NumpyMLP,
+                                                    load_policy_bundle)
+
+    bundle = load_policy_bundle(bundle_path)
+    policy, estimator = NumpyMLP(bundle["policy"]), NumpyMLP(bundle["estimator"])
+    scan_encoder = NumpyMLP(bundle["scan_encoder"])
+    adaptation = NumpyAdaptationEncoder(bundle["adaptation_module"])
+    P, H = nets.num_proprio, nets.history_buffer_length
+    return lambda o, s: policy(np.concatenate(
+        [o, adaptation(o[: P * H].reshape(H, P)), scan_encoder(s), estimator(o)]))
+
+
 def stiction_path(device, variant: str, log_root: str):
     """The go2_stiction main path after training: resume for one iteration,
     play with the play-time overrides and export, then the numpy policy
     runtime on the exported bundle against the torch policy.  Returns the
-    launches of resume and play together, or None on a failed gate."""
-    from legged_gym_custom_tpu_torch.deploy import (NumpyAdaptationEncoder, NumpyMLP,
-                                                    load_policy_bundle)
+    launches of resume and play together and play's result (its runner and
+    the exported bundle), or None on a failed gate."""
     from legged_gym_custom_tpu_torch.ops import fused_step
     from legged_gym_custom_tpu_torch.scripts import play as play_script
     from legged_gym_custom_tpu_torch.utils.task_registry import get_load_path
@@ -567,24 +620,17 @@ def stiction_path(device, variant: str, log_root: str):
 
     # the numpy runtime on the exported bundle against the torch policy, on
     # the observation play's last action was computed from
-    bundle = load_policy_bundle(played.bundle_path)
-    policy, estimator = NumpyMLP(bundle["policy"]), NumpyMLP(bundle["estimator"])
-    scan_encoder = NumpyMLP(bundle["scan_encoder"])
-    adaptation = NumpyAdaptationEncoder(bundle["adaptation_module"])
-    nets = played.runner.nets
+    numpy_policy = numpy_runtime(played.bundle_path, played.runner.nets)
     obs = played.obs.obs.cpu().numpy()
     scan = played.obs.scan.cpu().numpy()
-    hist = obs[:, : -nets.num_proprio].reshape(-1, nets.history_buffer_length, nets.num_proprio)
-    out = np.stack([
-        policy(np.concatenate([o, adaptation(h), scan_encoder(s), estimator(o)]))
-        for o, h, s in zip(obs, hist, scan)])
+    out = np.stack([numpy_policy(o, s) for o, s in zip(obs, scan)])
     diff = float(np.abs(out - played.actions.cpu().numpy()).max())
     log(f"[export] numpy runtime on the bundle against the torch policy, {len(obs)} "
         f"observations: max abs action difference {diff:.3e} (gate 1e-4)")
     if not diff < 1e-4:
         log("[export] FAIL: the numpy runtime disagrees with the torch policy")
         return None
-    return resume_launches + 1 + PLAY_STEPS
+    return resume_launches + 1 + PLAY_STEPS, played
 
 
 def torque_rollout(env, variant: str) -> int:
@@ -959,6 +1005,155 @@ def mpc_phase(device, card, variants):
     return launches, err
 
 
+def runtimes_check(played, device, card):
+    """Phase 9 (b): the exported bundle of phase 6's play in its three
+    runtimes on DEPLOY_OBS observations of a go2_stiction env on the card:
+    the torch policy on the card, the numpy runtime and the native C++
+    runtime, built here with g++.  Returns the env's launches, or -1 on a
+    failed gate."""
+    from legged_gym_custom_tpu_torch.deploy import mujoco_oracle, native
+    from legged_gym_custom_tpu_torch.envs import Obs
+    from legged_gym_custom_tpu_torch.ops import fused_step
+
+    t0 = time.time()
+    lib = native.build_library()
+    build_s = time.time() - t0
+    log(f"[deploy] native runtime: g++ {' '.join(native.CXX_FLAGS)} -> "
+        f"{os.path.relpath(lib, HERE)} in {build_s:.2f}s | {card}")
+    flat = native.write_flat_bundle(played.bundle_path, played.bundle_path[:-4] + ".lgct")
+    runtime = native.NativePolicy(flat)
+    numpy_policy = numpy_runtime(played.bundle_path, played.runner.nets)
+
+    # observations of the env on the card, a few steps into an episode
+    torch_policy = played.runner.get_inference_policy()
+    env = mujoco_oracle.task_env("go2_stiction", DEPLOY_OBS, device)
+    fused_step.reset_launch_counts()
+    state, obs = env.reset_all(torch.Generator(device=device).manual_seed(11))
+    for _ in range(DEPLOY_WARM_STEPS):
+        state, obs = env.step(state, torch_policy(obs, adaptation_mode=True))[:2]
+    torch.cuda.synchronize()
+    n = 1 + DEPLOY_WARM_STEPS
+    if not only_launched("deploy observations", fused_step.variant_name(env.fused_spec), n):
+        return -1
+    act_torch = torch_policy(obs, adaptation_mode=True).cpu().numpy()
+    o_np, s_np = obs.obs.cpu().numpy(), obs.scan.cpu().numpy()
+    act_numpy = np.stack([numpy_policy(o, s) for o, s in zip(o_np, s_np)])
+    act_native = np.stack([runtime(o, s) for o, s in zip(o_np, s_np)])
+    d_torch = float(np.abs(act_torch - act_numpy).max())
+    d_native = float(np.abs(act_native - act_numpy).max())
+
+    # one 50 Hz call each: a single observation
+    def per_call_us(call, items):
+        times = []
+        for item in items:
+            t = time.perf_counter()
+            call(*item)
+            times.append((time.perf_counter() - t) * 1e6)
+        return float(np.median(times))
+
+    one_obs = [Obs(*[x[i:i + 1] for x in obs]) for i in range(DEPLOY_OBS)]
+
+    def torch_call(o):
+        torch_policy(o, adaptation_mode=True)
+        torch.cuda.synchronize()
+
+    torch_call(one_obs[0])
+    us = {"torch on the card": per_call_us(torch_call, [(o,) for o in one_obs]),
+          "numpy": per_call_us(numpy_policy, list(zip(o_np, s_np))),
+          "native": per_call_us(runtime, list(zip(o_np, s_np)))}
+    runtime.close()
+    ok = d_torch <= DEPLOY_TORCH_GATE and d_native <= DEPLOY_NATIVE_GATE and \
+        bool(np.isfinite(act_native).all())
+    log(f"[deploy] bundle {os.path.relpath(played.bundle_path, HERE)} on {DEPLOY_OBS} "
+        f"observations of go2_stiction on the card after {DEPLOY_WARM_STEPS} steps: max abs "
+        f"action difference torch-numpy {d_torch:.3e} (gate {DEPLOY_TORCH_GATE}), native-numpy "
+        f"{d_native:.3e} (gate {DEPLOY_NATIVE_GATE}) {'ok' if ok else 'FAIL'}; median per 50 Hz "
+        f"call (one observation): " + ", ".join(f"{k} {v:.1f} us" for k, v in us.items())
+        + f"; native build {build_s:.2f}s | {card}")
+    return n if ok else -1
+
+
+def deploy_phase(device, card, specs, variants, played, go2_run):
+    """Phase 9 (module docstring).  Returns {variant: launches}, or None on a
+    failed gate."""
+    from legged_gym_custom_tpu_torch.deploy import mujoco_oracle as oracle
+    from legged_gym_custom_tpu_torch.ops import fused_step
+    from legged_gym_custom_tpu_torch.scripts import control_and_play
+
+    t_phase = time.time()
+    libraries = sorted(os.listdir(fused_step.BUILD_DIR))
+    k1, k2 = variants["fused_control_step"], variants["fused_control_step_stiction"]
+    launches = {k1: 0, k2: 0}
+
+    # (a) the stored MuJoCo drop against the card's K1 (go2) and K2 (go2_stiction)
+    stored = oracle.load_oracle()
+    drops = {}
+    for task, name in (("go2", "fused_control_step"),
+                       ("go2_stiction", "fused_control_step_stiction")):
+        env = oracle.task_env(task, DROP_ENVS, device)
+        if env.fused_spec != specs[name]:
+            log(f"[deploy] FAIL: the {task} env's spec is not phase 2's {name}")
+            return None
+        fused_step.reset_launch_counts()
+        t0 = time.time()
+        drops[task] = oracle.engine_drop(env, DROP_ENVS)
+        torch.cuda.synchronize()
+        if not only_launched(f"{task} drop", variants[name], oracle.REST_STEPS):
+            return None
+        launches[variants[name]] += oracle.REST_STEPS
+        same = all(bool((x == x[..., :1]).all()) for x in drops[task])
+        log(f"[deploy] {task} drop through {variants[name]}: {oracle.REST_STEPS} control steps of "
+            f"{DROP_ENVS} identical envs in {time.time() - t0:.2f}s; all envs bit-equal: {same} "
+            f"| {card}")
+        if not same:
+            return None
+    full = oracle.full_plant_gaps(*drops["go2"][:2], stored["qpos"])
+    rest = oracle.rest_stiction_gaps(drops["go2_stiction"][1][-1, :, 0],
+                                     drops["go2_stiction"][2][:, 0], drops["go2"][1][-1, :, 0],
+                                     stored["qpos"])
+    fmt = lambda gaps, gates: ", ".join(
+        f"{k} {gaps[k]:.5f}" + (f" (gate {gates[k]})" if k in gates else "")
+        for k in gaps if k != "ok")
+    log(f"[deploy] K1 full plant against MuJoCo {stored['mujoco_version']} (stored drop, "
+        f"{oracle.FULL_PLANT_STEPS} steps): {fmt(full, oracle.FULL_PLANT_GATES)} "
+        f"{'ok' if full['ok'] else 'FAIL'} | {card}")
+    log(f"[deploy] K2 rest stiction against MuJoCo (K1's tanh beside it, {oracle.REST_STEPS} "
+        f"steps): {fmt(rest, oracle.REST_GATES)} (implicit must be below tanh) "
+        f"{'ok' if rest['ok'] else 'FAIL'} | {card}")
+    if not (full["ok"] and rest["ok"]):
+        return None
+
+    # (b) the exported bundle in three runtimes
+    n = runtimes_check(played, device, card)
+    if n < 0:
+        return None
+    launches[k2] += n
+
+    # (c) control_and_play on phase 6's go2 run, through K1
+    args = control_and_play.get_args(["--task", "go2", "--load_run", go2_run, "--steps",
+                                      str(CONTROL_STEPS), "--device", "cuda"])
+    fused_step.reset_launch_counts()
+    t0 = time.time()
+    out = control_and_play.play(args)
+    torch.cuda.synchronize()
+    vx = float(out.state.commands[0, 0])
+    ok = out.steps == CONTROL_STEPS and out.obs_finite and vx == float(np.float32(args.vx))
+    log(f"[deploy] control_and_play --task go2 --load_run {go2_run}: {out.steps} steps in "
+        f"{time.time() - t0:.1f}s, observations finite {out.obs_finite}, command vx {vx} "
+        f"(--vx {args.vx}) {'ok' if ok else 'FAIL'} | {card}")
+    if not only_launched("control_and_play", k1, 1 + CONTROL_STEPS) or not ok:
+        return None
+    launches[k1] += 1 + CONTROL_STEPS
+
+    built = sorted(os.listdir(fused_step.BUILD_DIR))
+    log(f"[deploy] kernel libraries in {os.path.relpath(fused_step.BUILD_DIR, HERE)} before and "
+        f"after phase 9: {len(libraries)}, {len(built)}; no nvcc build: {built == libraries}")
+    if built != libraries:
+        return None
+    log(f"[deploy] phase 9 in {time.time() - t_phase:.1f}s")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser("chip_smoke")
     parser.add_argument("--stop-after", choices=("build", "check", "timing"), default=None)
@@ -1168,6 +1363,15 @@ def main() -> int:
         log(f"[layout] fused_control_step B={B}, medians of 50 in turns a, b, b, a: a pair of "
             f"lanes per leg (G = 8) {times['pair'][0]:.4f}, {times['pair'][1]:.4f} ms; one lane "
             f"per leg (G = 4) {times['one'][0]:.4f}, {times['one'][1]:.4f} ms")
+        if B == MPPI_ROLLOUTS:   # the layout the wrapper runs there: one lane per leg
+            outs = runs["one"]()
+            b = kernel_bound(k1, batch, outs)
+            ms = float(np.mean(times["one"]))
+            log(f"[timing] fused_control_step (K1) at MPPI's B*K={B} rollouts, one lane per leg "
+                f"(G = 4): {ms:.4f} ms (mean of the two medians); {b['bytes']} bytes, {b['ops']} "
+                f"fp32 ops of the kernel's algorithm ({b['ops'] // B} an env) -> bound "
+                f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bytes_ms']:.5f} ms bytes, "
+                f"{b['ops_ms']:.5f} ms ops); {ms / b['bound_ms']:.1f}x the bound | {smi}")
 
     if stop_after == "timing":
         log("[stop] after timing")
@@ -1200,9 +1404,10 @@ def main() -> int:
             if more is None:
                 return 1
             launches[name] += more
-    more = stiction_path(device, variants["fused_control_step_stiction"], smoke_root)
-    if more is None:
+    result = stiction_path(device, variants["fused_control_step_stiction"], smoke_root)
+    if result is None:
         return 1
+    more, played = result
     launches["fused_control_step_stiction"] += more
     launches["fused_control_step_T_hf"] = torque_rollout(t_env,
                                                          variants["fused_control_step_T_hf"])
@@ -1221,6 +1426,8 @@ def main() -> int:
         f"{float((scan.abs() > 0).float().mean()):.1%} of scandot entries nonzero; "
         f"terrain_levels moved for {moved} of {NUM_ENVS} envs")
 
+    go2_run = os.path.basename(trained["go2"].log_dir)   # phase 9's control_and_play loads it
+
     # ---- 7. where a training env step's time goes (after the main paths' counts)
     for task, runner in trained.items():
         profile_env_steps(runner, task)
@@ -1234,6 +1441,14 @@ def main() -> int:
     for name, variant in variants.items():
         launches[name] += mpc_launches.get(variant, 0)
     errs["fused_control_step"] = max(errs["fused_control_step"], err)
+
+    # ---- 9. deploy: the card's K1 and K2 against MuJoCo, the policy's three
+    # runtimes, control_and_play
+    result = deploy_phase(device, smi, specs, variants, played, go2_run)
+    if result is None:
+        return 1
+    for name, variant in variants.items():
+        launches[name] += result.get(variant, 0)
 
     replaces = {"fused_control_step": f"{REFERENCE}:824",
                 "fused_control_step_hf": f"{REFERENCE}:352",

@@ -4,7 +4,8 @@ The URDF is parsed once (physics/urdf.py) into a `RobotModel` of plain numpy
 arrays: kinematic tree, spatial inertias, joint limits and a sphere-set
 collision model.  Per-geom ``link`` labels keep the original URDF link names
 so feet / penalized / termination bodies resolve by name substring as in the
-reference.  The MJCF export of the JAX copy is not carried over.
+reference.  `RobotModel.to_mjcf` (copied verbatim) writes the equivalent
+MuJoCo model, the independent oracle of the dynamics and of the deploy loop.
 """
 from __future__ import annotations
 
@@ -76,6 +77,114 @@ class RobotModel:
             [i for i, n in enumerate(self.dof_names) if any(s in n for s in substrings)],
             dtype=np.int32,
         )
+
+    # ------------------------------------------------------------------
+    # MJCF export — lets tests build an *equivalent* MuJoCo model so the TPU
+    # dynamics can be validated step-by-step against the oracle (SURVEY §4).
+    # ------------------------------------------------------------------
+    def to_mjcf(self, contact: bool = False, friction: float = 1.0,
+                timestep: float = 0.005, joint_damping=0.0,
+                joint_armature=0.0, joint_frictionloss=0.0) -> str:
+        """Equivalent MJCF. contact=False (dynamics-only oracle) disables all
+        collisions; contact=True adds a ground plane + sphere contacts so the
+        full stepping pipeline can be compared sim-to-sim.
+
+        joint_damping / joint_armature / joint_frictionloss (scalar or
+        per-dof) mirror the reference deploy plant's per-joint dynamics
+        (go2.xml:9: damping=0.1 armature=0.01 frictionloss=0.2) so parity
+        tests can compare against the *full* plant, not a zeroed one."""
+        import xml.etree.ElementTree as ET
+
+        def fmt(a):
+            return " ".join(f"{x:.12g}" for x in np.asarray(a).ravel())
+
+        root = ET.Element("mujoco", model=self.name)
+        ET.SubElement(root, "option", timestep=f"{timestep}", integrator="Euler")
+        ET.SubElement(
+            root, "compiler", angle="radian", inertiafromgeom="false", balanceinertia="false"
+        )
+        world = ET.SubElement(root, "worldbody")
+        if contact:
+            ET.SubElement(
+                world, "geom", type="plane", size="50 50 1", pos="0 0 0",
+                friction=f"{friction} 0.005 0.0001", contype="1", conaffinity="1",
+            )
+
+        def mat_to_quat(E):
+            # E = R_{child<-parent}; MuJoCo wants body quat = R_{parent<-child}
+            R = E.T
+            tr = np.trace(R)
+            if tr > 0:
+                s = np.sqrt(tr + 1.0) * 2
+                q = np.array(
+                    [0.25 * s, (R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s]
+                )
+            else:
+                i = int(np.argmax(np.diag(R)))
+                j, k = (i + 1) % 3, (i + 2) % 3
+                s = np.sqrt(1.0 + R[i, i] - R[j, j] - R[k, k]) * 2
+                q = np.zeros(4)
+                q[0] = (R[k, j] - R[j, k]) / s
+                q[1 + i] = 0.25 * s
+                q[1 + j] = (R[j, i] + R[i, j]) / s
+                q[1 + k] = (R[k, i] + R[i, k]) / s
+            return q / np.linalg.norm(q)
+
+        elems = {}
+        for i in range(self.nb):
+            parent_el = world if self.parent[i] < 0 else elems[self.parent[i]]
+            body = ET.SubElement(
+                parent_el,
+                "body",
+                name=self.body_names[i],
+                pos=fmt(self.joint_pos[i]),
+                quat=fmt(mat_to_quat(self.joint_rot[i])),
+            )
+            elems[i] = body
+            ET.SubElement(
+                body,
+                "inertial",
+                pos=fmt(self.com[i]),
+                mass=f"{self.mass[i]:.12g}",
+                fullinertia=fmt(
+                    [
+                        self.inertia_com[i][0, 0],
+                        self.inertia_com[i][1, 1],
+                        self.inertia_com[i][2, 2],
+                        self.inertia_com[i][0, 1],
+                        self.inertia_com[i][0, 2],
+                        self.inertia_com[i][1, 2],
+                    ]
+                ),
+            )
+            if i == 0:
+                ET.SubElement(body, "freejoint", name="root")
+            else:
+                per_dof = lambda v: float(np.broadcast_to(
+                    np.asarray(v, np.float64), (self.nb - 1,))[i - 1])
+                ET.SubElement(
+                    body,
+                    "joint",
+                    name=self.dof_names[i - 1],
+                    type="hinge",
+                    axis=fmt(self.joint_axis[i]),
+                    limited="false",
+                    damping=f"{per_dof(joint_damping):.12g}",
+                    armature=f"{per_dof(joint_armature):.12g}",
+                    frictionloss=f"{per_dof(joint_frictionloss):.12g}",
+                )
+        for g in range(self.ng):
+            ET.SubElement(
+                elems[self.geom_body[g]],
+                "geom",
+                type="sphere",
+                size=f"{self.geom_radius[g]:.12g}",
+                pos=fmt(self.geom_pos[g]),
+                contype="1" if contact else "0",
+                conaffinity="0",
+                mass="0",
+            )
+        return ET.tostring(root, encoding="unicode")
 
 
 _MAX_SPHERES_PER_AXIS = 3

@@ -94,10 +94,38 @@ def test_port_modules_load_without_jax():
             "import legged_gym_custom_tpu_torch.utils.logger\n"
             "import legged_gym_custom_tpu_torch.mpc, legged_gym_custom_tpu_torch.mpc.bench\n"
             "import legged_gym_custom_tpu_torch.bench, legged_gym_custom_tpu_torch.utils.profiling\n"
+            "import legged_gym_custom_tpu_torch.deploy.config_parser\n"
+            "import legged_gym_custom_tpu_torch.deploy.native\n"
+            "import legged_gym_custom_tpu_torch.deploy.mujoco_runner\n"
+            "import legged_gym_custom_tpu_torch.deploy.mujoco_oracle\n"
+            "import legged_gym_custom_tpu_torch.deploy.scene_gen\n"
+            "import legged_gym_custom_tpu_torch.deploy.real_robot\n"
+            "import legged_gym_custom_tpu_torch.deploy.import_torchscript\n"
+            "import legged_gym_custom_tpu_torch.deploy.gamepad\n"
+            "import legged_gym_custom_tpu_torch.scripts.make_gap_scene\n"
+            "import legged_gym_custom_tpu_torch.scripts.control_and_play\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
                          cwd=os.path.dirname(PORT_DIR), check=True)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_port_deploy_loads_without_yaml_and_mujoco():
+    """The card's machine has neither yaml nor mujoco: the deploy package, the
+    native runtime, the MuJoCo oracle's module and control_and_play import
+    without them (a fresh interpreter where importing either fails)."""
+    code = ("import sys\n"
+            "sys.modules['yaml'] = sys.modules['mujoco'] = None\n"
+            "import legged_gym_custom_tpu_torch.deploy, legged_gym_custom_tpu_torch.deploy.native\n"
+            "import legged_gym_custom_tpu_torch.deploy.mujoco_oracle\n"
+            "import legged_gym_custom_tpu_torch.scripts.control_and_play\n"
+            "try:\n"
+            "    import yaml\n"
+            "except ImportError:\n"
+            "    print('no yaml')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                         cwd=os.path.dirname(PORT_DIR), check=True)
+    assert out.stdout.strip() == "no yaml", out.stdout + out.stderr
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
