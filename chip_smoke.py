@@ -110,6 +110,28 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                <phase 6's go2 run> --steps 50`: exactly 51 K1 launches and no
                other kernel; no kernel library is built in the phase.  It
                imports neither mujoco nor yaml.
+ 10. other robots - the four builds of the other robots' tasks, started with
+               phase 2's (the seeded stand-in of ANYmal's SEA network,
+               tests/torch_actuator_net.py, is written under build/first):
+               `fused_control_step_T[anymal_c_flat]` and
+               `fused_control_step_T_hf[anymal_c_rough]`, ANYmal's one-tick
+               'T' specs (decimation 1, action scale 1: the network's torques
+               are the actions, one launch a decimation tick),
+               `fused_control_step_hf[cassie]` and `fused_control_step[g1]`,
+               the bipeds' chains of 6 at a pair of lanes a leg (G = 4); each
+               against its plain version at 4096 envs on the synthetic URDFs
+               (each robot at its standing height, on the rough builds a
+               quarter of the bases within 0.3 m of a height step) with
+               phase 3's gates, and timed with its bound as in phase 4; the
+               tick-wise actuated step (`physics.actuated_control_step` on the
+               card) against the eager loop on the ANYmal plane and rough
+               terrain, the LSTM state included, with exactly `decimation`
+               launches; then `anymal_c_flat` trained 3 iterations and
+               `anymal_c_rough`, `cassie` and `g1` one each through the train
+               CLI's `train` at 4096 envs: decimation x (1 + 24 x iterations)
+               launches for ANYmal, 1 + 24 x iterations for the others, finite
+               losses, a profile of each task's step and the SEA LSTM's share
+               of an ANYmal step.
 Then it prints the kernels' JSON line, the card's line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -161,6 +183,15 @@ DEPLOY_OBS, DEPLOY_WARM_STEPS = 256, 4
 DEPLOY_TORCH_GATE, DEPLOY_NATIVE_GATE = 1e-4, 1e-5
 CONTROL_STEPS = 50
 TREE_K, TREE_HS = 8, 0.1       # the test tree's window
+# phase 10: the other robots' tasks, their training iterations, the seeded
+# stand-in of the SEA actuator network (tests/torch_actuator_net.py), the
+# torque scale of the 'T' builds' random batches, and the plain version's
+# repetitions when timed
+OTHER_TASKS = {"anymal_c_flat": 3, "anymal_c_rough": 1, "cassie": 1, "g1": 1}
+SEA_NET = os.path.join(HERE, "build", "actuator_nets", "sea_stand_in.pt")
+SEA_TORQUE = 40.0
+OTHER_PLAIN_REPS = 3
+LSTM_TOLERANCE = (1e-3, 1e-3)   # hidden and cell lie in (-1, 1), as lin_vel's scale
 SOURCE = "legged_gym_custom_tpu_torch/ops/csrc/fused_step.cu"
 REFERENCE = "legged_gym_custom_tpu/ops/fused_step.py"
 # Per-output tolerances (atol, rtol) of tests/test_fused_step.py:126-135 (K1)
@@ -417,6 +448,7 @@ def profile_env_steps(runner, task: str, steps: int = 5):
     for e in top:
         log(f"[profile]   {dev(e) / 1e3 / steps:8.3f} ms/step  {e.count // steps:5d} calls/step  "
             f"{e.key[:90]}")
+    return dict(wall_ms=wall_ms, device_ms=device_ms)
 
 
 def card_lines():
@@ -439,7 +471,7 @@ def check_kernel(label, names, tolerances, out_k, out_p):
     return ok, max(r["max_abs"] for r in rows.values())
 
 
-def time_kernel(label, spec, args, out_k):
+def time_kernel(label, spec, args, out_k, plain_reps: int = 5):
     """CUDA-event medians of the kernel and its plain version, bytes and
     operations of this run's inputs, and the bound they give.  The operations
     are those of the kernel's algorithm, counted on one env from the tests'
@@ -451,7 +483,6 @@ def time_kernel(label, spec, args, out_k):
     call = lambda: fused_step.fused_control_step(spec, *args)
     ms = cuda_time_ms(call, reps=50, ahead_ms=AHEAD_MS)
     host_ms = cuda_time_ms(call, reps=50)
-    plain_reps = 5
     plain_ms = cuda_time_ms(lambda: fused_step.plain_control_step(spec, *args),
                             reps=plain_reps, warmup=1)
     b = kernel_bound(spec, args, (*out_k[0], out_k[1], out_k[2]))
@@ -520,11 +551,13 @@ class Tee(io.StringIO):
 
 
 def train_task(task: str, variant: str, iterations: int = TRAIN_ITERATIONS, first_iteration=0,
-               updates=("dagger", "ppo", "ppo"), extra=(), log_root="default"):
-    """A training path of `task`: the train CLI's `train` at 4096 envs, with
-    the launch counters set to 0 just before and read just after.  Returns
-    (runner, history, launches of the path's kernel, what it printed) or None
-    on a failed gate."""
+               updates=("dagger", "ppo", "ppo"), extra=(), log_root="default", env_cfg=None,
+               ticks: int = 1):
+    """A training path of `task`: the train CLI's `train` at 4096 envs (from
+    `env_cfg` when given), with the launch counters set to 0 just before and
+    read just after; the path's kernel launches `ticks` times an env step.
+    Returns (runner, history, launches of the path's kernel, what it printed)
+    or None on a failed gate."""
     from legged_gym_custom_tpu_torch.ops import fused_step
     from legged_gym_custom_tpu_torch.scripts import train as train_script
 
@@ -535,11 +568,11 @@ def train_task(task: str, variant: str, iterations: int = TRAIN_ITERATIONS, firs
     t0 = time.time()
     printed = Tee(sys.stdout)
     with contextlib.redirect_stdout(printed):
-        runner, history = train_script.train(args, log_root=log_root)
+        runner, history = train_script.train(args, log_root=log_root, env_cfg=env_cfg)
     torch.cuda.synchronize()
     launches = fused_step.launch_counts().get(variant, 0)
     train_s = time.time() - t0
-    expected = 1 + STEPS_PER_ITERATION * iterations  # reset_all steps once
+    expected = ticks * (1 + STEPS_PER_ITERATION * iterations)  # reset_all steps once
     label = f"{task}{' ' + ' '.join(extra) if extra else ''}"
     for h in history:
         level = f", mean terrain level {h['terrain_level']:.3f}" if "terrain_level" in h else ""
@@ -1154,6 +1187,132 @@ def deploy_phase(device, card, specs, variants, played, go2_run):
     return launches
 
 
+def robot_cfg(task: str):
+    """The env config of an other robot's task at 4096 envs; ANYmal's SEA
+    network is the seeded stand-in phase 2 writes."""
+    from legged_gym_custom_tpu_torch.envs import task_registry
+
+    cfg, _ = task_registry.get_cfgs(task)
+    cfg.env.num_envs = NUM_ENVS
+    if getattr(cfg.control, "use_actuator_network", False):
+        cfg.control.actuator_net_file = SEA_NET
+    return cfg
+
+
+def lstm_share(runner, step: dict, card: str):
+    """The SEA network's share of an ANYmal env step: calls of the env's
+    torque function at its batch under torch.profiler, their kernels counted
+    and their device time summed, times the ticks of a step, against the
+    step's device time from `profile_env_steps` (the same measure)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    env, state = runner.env, runner.env_state
+    to_cb = lambda x: x.movedim(0, -1).contiguous()
+    act = tuple(to_cb(x) for x in state.actuator_state)
+    q, qd = to_cb(state.physics.dof_pos), to_cb(state.physics.dof_vel)
+    a = torch.zeros_like(q)
+    call = lambda: env._torque_fn(a, q, qd, act)
+    calls = 20
+    with torch.no_grad():
+        call()     # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    per_call = sum(e.count for e in kernels) / calls
+    ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    ticks = env.fused_spec.decimation
+    log(f"[lstm] {env.num_envs} envs: the SEA LSTM (torque function) per tick {ms:.4f} ms device "
+        f"time, {per_call:.0f} kernel launches; per env step ({ticks} ticks) {ticks * ms:.3f} ms "
+        f"and {ticks * per_call:.0f} launches, {ticks * ms / step['device_ms']:.1%} of the step's "
+        f"{step['device_ms']:.3f} ms device time | {card}")
+
+
+def other_robots_phase(device, card, envs, specs, names):
+    """Phase 10: the other robots' builds at 4096 envs against their plain
+    versions and timed, the tick-wise actuated step against the eager loop on
+    the card, and the four tasks trained through the train CLI's `train`.
+    Returns ({task: timing}, {task: max abs error}, {task: launches}) or None
+    on a failed gate."""
+    import torch_tree_model as tree_model
+
+    from legged_gym_custom_tpu_torch import physics as phys
+    from legged_gym_custom_tpu_torch.ops import fused_step
+
+    t_phase = time.time()
+    timings, errs, launches, ok = {}, {}, {}, True
+    # (a) each build against its plain version at the main path's shapes
+    for seed, (task, env) in enumerate(envs.items(), start=40):
+        spec = specs[task]
+        args = tree_model.robot_batch(env, seed, NUM_ENVS, device)
+        if spec.control_type == "T":    # torques of the SEA network's size
+            args = (args[0], (args[1] * SEA_TORQUE).contiguous(), *args[2:])
+        out = fused_step.fused_control_step(spec, *args)
+        torch.cuda.synchronize()
+        ref = fused_step.plain_control_step(spec, *args)
+        ok_k, errs[task] = check_kernel(names[task], NAMES,
+                                        HF_TOLERANCES if spec.hf_K else TOLERANCES, out, ref)
+        contact = float(ref[1].abs().max())
+        where = (f"on the {task} terrain, {NUM_ENVS // 4} bases within 0.3 m of a height step of "
+                 f">= 5 cm" if spec.hf_K else "on the plane")
+        log(f"[check] {names[task]} {where}: plain max contact force {contact:.1f} N "
+            f"{'ok' if ok_k else 'FAIL'} | {card}")
+        ok &= ok_k and contact > 10.0
+        timings[task] = time_kernel(names[task], spec, args, out, plain_reps=OTHER_PLAIN_REPS)
+    if not ok:
+        log("[check] FAIL: an other robot's build disagrees with its plain version")
+        return None
+
+    # (b) the tick-wise actuated step against the eager loop, on the card
+    lstm_tol = dict(TOLERANCES, lstm_hidden=LSTM_TOLERANCE, lstm_cell=LSTM_TOLERANCE)
+    for seed, task in enumerate(("anymal_c_flat", "anymal_c_rough"), start=50):
+        env = envs[task]
+        state, actions, dr = tree_model.robot_batch(env, seed, NUM_ENVS, device)[:3]
+        gen = torch.Generator(device=device).manual_seed(seed)
+        act = tuple(torch.randn((2, 12, 8, NUM_ENVS), generator=gen, device=device) * 0.3
+                    for _ in range(2))
+        args = (env.ma, env.hf, env.sim_params, env.pd, phys.DomainRandParams(*dr),
+                env.dof_limits, phys.PhysicsState(*state), actions)
+        fused_step.reset_launch_counts()
+        st, info, act_k = phys.actuated_control_step(*args, act, env._torque_fn,
+                                                     spec=env.fused_spec)
+        torch.cuda.synchronize()
+        ok &= only_launched(f"{task} tick-wise step", fused_step.variant_name(specs[task]),
+                            env.fused_spec.decimation)
+        st_e, info_e, act_e = phys.engine._eager_loop(*args, env._torque_fn, act)
+        tol = dict(lstm_tol, dof_vel=HF_TOLERANCES["dof_vel"]) if env.fused_spec.hf_K else lstm_tol
+        names_b = NAMES + ["lstm_hidden", "lstm_cell"]
+        rows, ok_b = compare(names_b, (*st, info.link_forces, info.torques, *act_k),
+                             (*st_e, info_e.link_forces, info_e.torques, *act_e), tol)
+        for name, row in rows.items():
+            log(f"[tickwise] {task} {name:12s} max_abs {row['max_abs']:.3e}  p99 err/tol "
+                f"{row['p99_tol_ratio']:.3f}  {'ok' if row['pass'] else 'FAIL'}")
+        ok &= ok_b
+    if not ok:
+        log("[tickwise] FAIL: the tick-wise kernel path disagrees with the eager loop")
+        return None
+
+    # (c) the four tasks trained through the train CLI's `train`
+    for task, iterations in OTHER_TASKS.items():
+        env = envs[task]
+        ticks = env.fused_spec.decimation if env._torque_fn is not None else 1
+        result = train_task(task, fused_step.variant_name(specs[task]), iterations=iterations,
+                            updates=("dagger", "ppo", "ppo")[:iterations], env_cfg=robot_cfg(task),
+                            ticks=ticks)
+        if result is None:
+            return None
+        runner, history, launches[task], _ = result
+        step = profile_env_steps(runner, task)
+        if task == "anymal_c_flat":
+            lstm_share(runner, step, card)
+        del runner
+    log(f"[other robots] phase 10 in {time.time() - t_phase:.1f}s")
+    return timings, errs, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser("chip_smoke")
     parser.add_argument("--stop-after", choices=("build", "check", "timing"), default=None)
@@ -1167,7 +1326,7 @@ def main() -> int:
 
     from legged_gym_custom_tpu_torch import LEGGED_GYM_TORCH_ROOT_DIR, SYNTHETIC_GO2_URDF
     from legged_gym_custom_tpu_torch.envs import task_registry
-    from legged_gym_custom_tpu_torch.ops import fused_step
+    from legged_gym_custom_tpu_torch.ops import fused_step, lane_plan
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1225,25 +1384,46 @@ def main() -> int:
         specs["fused_control_step_hf"], lanes)
     log(f"[spec] {pit_label}: hf_K {pit_spec.hf_K}, hf_hs {pit_spec.hf_hs}; names a library of "
         f"its own (not go2_parkour's): {pit_own}")
+    # the other robots' builds (phase 10): ANYmal's one-tick 'T' spec on the
+    # plane and the rough terrain, Cassie's heightfield spec, G1's plane spec
+    import torch_actuator_net
+
+    torch_actuator_net.write_sea_net(SEA_NET)
+    robot_envs = {task: task_registry.make_env(task, env_cfg=robot_cfg(task), device=device)[0]
+                  for task in OTHER_TASKS}
+    robot_specs = {task: fused_step.tick_spec(env.fused_spec) if env._torque_fn is not None
+                   else env.fused_spec for task, env in robot_envs.items()}
+    robot_names = {task: f"{fused_step.variant_name(spec)}[{task}]"
+                   for task, spec in robot_specs.items()}
+    for task, spec in robot_specs.items():
+        plan = lane_plan.lane_plan(spec, fused_step.lanes_per_branch_for(spec))
+        log(f"[spec] {robot_names[task]}: {len(spec.parent) - 1} dofs, {plan.n_branches} "
+            f"branches of depth {plan.depth}, G = {plan.G}, decimation {spec.decimation}, "
+            f"control {spec.control_type!r}, action scale {spec.action_scale}, hf_K {spec.hf_K}, "
+            f"{len(spec.geom_body)} spheres; URDF {robot_envs[task].cfg.asset.file}")
     t0 = time.time()
     builds = {name: fused_step.KernelBuild(spec) for name, spec in specs.items()}
+    robot_builds = {robot_names[task]: fused_step.KernelBuild(spec)
+                    for task, spec in robot_specs.items()}
     other_builds = {one_lane: fused_step.KernelBuild(specs["fused_control_step"], 1),
                     **{label: fused_step.KernelBuild(spec) for label, spec in tree_specs.items()}}
     if pit_own:
         other_builds[pit_label] = fused_step.KernelBuild(pit_spec)
     kernels = {name: b.finish() for name, b in builds.items()}
     other_kernels = {label: b.finish() for label, b in other_builds.items()}
-    log(f"[build] {len(builds) + len(other_builds)} kernels in {time.time() - t0:.2f}s wall "
-        f"({len(builds)} of the main paths at 4096 envs, {len(other_builds)} of MPPI's 65536 "
+    robot_kernels = {name: b.finish() for name, b in robot_builds.items()}
+    log(f"[build] {len(builds) + len(other_builds) + len(robot_builds)} kernels in "
+        f"{time.time() - t0:.2f}s wall ({len(builds)} of the main paths at 4096 envs, "
+        f"{len(robot_builds)} of the other robots' paths, {len(other_builds)} of MPPI's 65536 "
         f"rollouts and of the layout, tree and MPPI checks); lanes per leg: {lanes} up to "
         f"{fused_step.PAIR_MAX_ENVS} envs, 1 above")
-    for name, kernel in {**kernels, **other_kernels}.items():
+    for name, kernel in {**kernels, **robot_kernels, **other_kernels}.items():
         summary = fused_step.ptxas_summary(kernel.ptxas)
         B = MPPI_ROLLOUTS if name == one_lane else NUM_ENVS
         info = fused_step.launch_info(kernel, B)
         log(f"[build] {name}: nvcc {kernel.build_seconds:.2f}s; ptxas {json.dumps(summary)}; "
             f"launch at B={B}: {json.dumps(info)}")
-        if name in kernels:
+        if name in kernels or name in robot_kernels:
             for line in kernel.ptxas.splitlines():
                 log(f"[build] {name} ptxas: {line}")
         if summary.get("spill_store_bytes") or summary.get("spill_load_bytes"):
@@ -1450,6 +1630,13 @@ def main() -> int:
     for name, variant in variants.items():
         launches[name] += result.get(variant, 0)
 
+    # ---- 10. the other robots: ANYmal's SEA network through one-tick 'T'
+    # launches, Cassie and G1 through the biped builds
+    result = other_robots_phase(device, smi, robot_envs, robot_specs, robot_names)
+    if result is None:
+        return 1
+    robot_timings, robot_errs, robot_launches = result
+
     replaces = {"fused_control_step": f"{REFERENCE}:824",
                 "fused_control_step_hf": f"{REFERENCE}:352",
                 "fused_control_step_stiction": f"{REFERENCE}:633",
@@ -1459,6 +1646,17 @@ def main() -> int:
              launches=launches[name], max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
              bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
         for name, t in timings.items()]}
+    robot_replaces = {"fused_control_step_T": f"{REFERENCE}:690",
+                      "fused_control_step_T_hf": f"{REFERENCE}:690",
+                      "fused_control_step_hf": f"{REFERENCE}:352",
+                      "fused_control_step": f"{REFERENCE}:824"}
+    line["kernels"] += [
+        dict(name=robot_names[task], route="cuda", source=SOURCE,
+             replaces=robot_replaces[fused_step.variant_name(robot_specs[task])],
+             launches=robot_launches[task], max_abs_err=robot_errs[task], ms=t["ms"],
+             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+             library_ms=None)
+        for task, t in robot_timings.items()]
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

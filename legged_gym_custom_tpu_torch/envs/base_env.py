@@ -13,11 +13,13 @@ pushes) -> termination -> rewards -> masked reset -> observations.
 
 Ported: the flat plane, and heightfield terrain (mesh_type 'heightfield'
 or 'trimesh') with custom origins, the terrain and command curricula,
-scandot heights, the parkour hole termination, and the parkour stages'
-course-progress tracking (`max_x`, the progress-stall termination and the
-spawn curriculum).  Stateful actuator models come with a later slice; a
-config asking for an actuator network raises NotImplementedError at
-construction.
+scandot heights (and the upstream layout's height samples in the proprio
+stream when `terrain.measure_heights` is set), the parkour hole termination,
+the parkour stages' course-progress tracking (`max_x`, the progress-stall
+termination and the spawn curriculum), and stateful actuator models: a task
+whose `_build_torque_fn` returns a torque function (the ANYmal SEA LSTM)
+carries its state in `EnvState.actuator_state`, zeroed on reset, and steps
+through `physics.actuated_control_step`.
 """
 from __future__ import annotations
 
@@ -73,9 +75,17 @@ class EnvState:
     command_ranges: torch.Tensor          # (4, 2) [vx, vy, wz, heading]
     dr: DomainRandParams                  # batch-leading per-env params
     rng: torch.Generator
+    actuator_state: Any = None            # stateful actuator model (SEA LSTM), batch-leading
 
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)
+
+
+def _tree_map(fn, tree):
+    """`fn` on a tensor, or on each tensor of a (nested) tuple of them."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, t) for t in tree)
+    return fn(tree)
 
 
 def _where(mask, new, old):
@@ -110,8 +120,6 @@ class LeggedEnv:
                  terrain_seed: int = 0):
         self.device = resolve_device(device)
         self.cfg = cfg
-        if getattr(cfg.control, "use_actuator_network", False):
-            raise NotImplementedError("actuator networks are not ported yet")
 
         dev = self.device
         f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
@@ -319,22 +327,46 @@ class LeggedEnv:
         vx_range = getattr(init, "rand_vx_range", None)
         self.spawn_vx_range = None if vx_range is None else tuple(vx_range)
 
-    def _vstep(self, physics: PhysicsState, actions, dr: DomainRandParams):
-        """Run the engine from batch-leading env tensors.
+        self._torque_fn = self._build_torque_fn()
+
+    def _vstep(self, physics: PhysicsState, actions, dr: DomainRandParams, actuator_state=None):
+        """Run the engine from batch-leading env tensors; returns (physics',
+        StepInfo, actuator_state').
 
         The env stores (B, ...) leaves (convenient for masked resets and
         obs); the engine and the fused kernel take component-major (C, B)
         rows with the batch trailing, contiguous.
         """
         to_cb = lambda x: x.movedim(0, -1).contiguous()
-        st, info = phys.control_step(
-            self.ma, self.hf, self.sim_params, self.pd,
-            DomainRandParams(*[to_cb(x) for x in dr]), self.dof_limits,
-            PhysicsState(*[to_cb(x) for x in physics]), to_cb(actions),
-            spec=self.fused_spec,
-        )
         from_cb = lambda x: x.movedim(-1, 0)
-        return PhysicsState(*[from_cb(x) for x in st]), type(info)(*[from_cb(x) for x in info])
+        args = (self.ma, self.hf, self.sim_params, self.pd,
+                DomainRandParams(*[to_cb(x) for x in dr]), self.dof_limits,
+                PhysicsState(*[to_cb(x) for x in physics]), to_cb(actions))
+        if self._torque_fn is None:
+            st, info = phys.control_step(*args, spec=self.fused_spec)
+        else:
+            st, info, actuator_state = phys.actuated_control_step(
+                *args, _tree_map(to_cb, actuator_state), self._torque_fn, spec=self.fused_spec)
+            actuator_state = _tree_map(from_cb, actuator_state)
+        return (PhysicsState(*[from_cb(x) for x in st]), type(info)(*[from_cb(x) for x in info]),
+                actuator_state)
+
+    # ------------------------------------------------------------------
+    # Stateful actuator hooks (the ANYmal SEA network overrides these)
+    # ------------------------------------------------------------------
+    def _build_torque_fn(self):
+        """`torque_fn(actions, dof_pos, dof_vel, act_state) -> (tau,
+        act_state')` on (C, B) tensors, or None for the PD law."""
+        return None
+
+    def _init_actuator_state(self):
+        """Per-env initial actuator state, batch-leading; a (B,) placeholder
+        when stateless."""
+        return torch.zeros((self.num_envs,), device=self.device)
+
+    def _reset_actuator_state(self, act_state, reset_mask):
+        """Zero the actuator state of the envs that reset."""
+        return _tree_map(lambda x: _where(reset_mask, torch.zeros_like(x), x), act_state)
 
     # ------------------------------------------------------------------
     # Task-specific hooks (overridden by Go2Env)
@@ -353,12 +385,14 @@ class LeggedEnv:
         n[6:9] = ns.gravity * lvl
         n[12:12 + a] = ns.dof_pos * lvl * osc.dof_pos
         n[12 + a:12 + 2 * a] = ns.dof_vel * lvl * osc.dof_vel
+        if cfg.terrain.measure_heights:
+            n[12 + 3 * a:] = ns.height_measurements * lvl * osc.height_measurements
         return n
 
     def _proprio_obs(self, state: EnvState, derived: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Current-step proprio obs (legged_robot.py:240-256)."""
         ph = state.physics
-        return torch.cat([
+        parts = [
             derived["base_lin_vel"] * self.obs_scales.lin_vel,
             derived["base_ang_vel"] * self.obs_scales.ang_vel,
             derived["projected_gravity"],
@@ -366,7 +400,11 @@ class LeggedEnv:
             (ph.dof_pos - self.default_dof_pos) * self.obs_scales.dof_pos,
             ph.dof_vel * self.obs_scales.dof_vel,
             state.actions,
-        ], dim=-1)
+        ]
+        if self.cfg.terrain.measure_heights:
+            parts.append(torch.clamp(ph.base_pos[:, 2:3] - 0.5 - state.measured_heights,
+                                     -1.0, 1.0) * self.obs_scales.height_measurements)
+        return torch.cat(parts, dim=-1)
 
     def _streams(self, state: EnvState, derived, obs_full) -> Obs:
         """Privileged / estimated / scan / critic streams."""
@@ -656,6 +694,7 @@ class LeggedEnv:
             command_ranges=cr,
             dr=dr,
             rng=gen,
+            actuator_state=self._init_actuator_state(),
         )
         physics = self._sample_reset_physics(state, gen, origins)
         state = state.replace(physics=physics, max_x=physics.base_pos[:, 0])
@@ -676,7 +715,8 @@ class LeggedEnv:
         actions = torch.clamp(actions, -clip_a, clip_a)
 
         # ---- physics (decimated PD torque loop) ----
-        ph, info = self._vstep(state.physics, actions, state.dr)
+        ph, info, actuator_state = self._vstep(state.physics, actions, state.dr,
+                                               state.actuator_state)
         episode_length = state.episode_length + 1
         common_step = state.common_step + 1
 
@@ -833,6 +873,7 @@ class LeggedEnv:
             episode_sums=episode_sums,
             max_x=max_x,
             stall_time=stall_time,
+            actuator_state=self._reset_actuator_state(actuator_state, reset_buf),
         )
         new_state, obs = self._compute_observations(new_state, derived, gen)
 

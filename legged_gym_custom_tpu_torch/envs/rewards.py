@@ -5,11 +5,11 @@ Each term is a batched function of a `RewardCtx` and the task's
 (scale * dt, zero scales dropped) and sums the terms with positive clipping
 and the termination-after-clip rule (reference legged_robot.py:216-237).
 
-Ported so far: the terms the flat `go2` task and the go2_parkour stages
-scale (go2_config.py, go2_parkour_config.py rewards.scales), among them
-`progress` and `feet_contact_forces`, plus every term the base config
-switches on, `min_height` and `termination`.  The biped and humanoid terms
-come with their robots.
+Every term of the JAX registry is here: the base terms
+(legged_robot.py:1036-1148), the Go2 parkour and phase-gait terms
+(go2.py:578-831), the G1 humanoid terms (g1_env_broken.py:106-124, with
+`forward_vel` as the clipped world forward velocity) and Cassie's `no_fly`
+(cassie.py:42-46).
 """
 from __future__ import annotations
 
@@ -111,6 +111,10 @@ def _reward_torques(ctx, s):
     return _sq_sum(ctx.torques)
 
 
+def _reward_dof_vel(ctx, s):
+    return _sq_sum(ctx.dof_vel)
+
+
 def _reward_dof_acc(ctx, s):
     return _sq_sum((ctx.last_dof_vel - ctx.dof_vel) / s.dt)
 
@@ -126,6 +130,33 @@ def _reward_collision(ctx, s):
 
 def _reward_termination(ctx, s):
     return (ctx.reset_buf & ~ctx.time_out_buf).float()
+
+
+def _reward_dof_pos_limits(ctx, s):
+    out = -torch.clamp(ctx.dof_pos - s.soft_dof_pos_limits[:, 0], max=0.0)
+    out = out + torch.clamp(ctx.dof_pos - s.soft_dof_pos_limits[:, 1], min=0.0)
+    return torch.sum(out, dim=1)
+
+
+def _reward_dof_vel_limits(ctx, s):
+    return torch.sum(torch.clamp(
+        torch.abs(ctx.dof_vel) - s.dof_vel_limits * s.soft_dof_vel_limit, 0.0, 1.0), dim=1)
+
+
+def _reward_torque_limits(ctx, s):
+    return torch.sum(torch.clamp(
+        torch.abs(ctx.torques) - s.torque_limits * s.soft_torque_limit, min=0.0), dim=1)
+
+
+def _reward_stand_still(ctx, s):
+    small = torch.linalg.norm(ctx.commands[:, :2], dim=1) < 0.1
+    return torch.sum(torch.abs(ctx.dof_pos - s.default_dof_pos), dim=1) * small
+
+
+def _reward_feet_air_time(ctx, s):
+    """Long-step reward on filtered first contact (go2.py:819-831)."""
+    rew = torch.sum((ctx.feet_air_time - 0.5) * ctx.first_contact, dim=1)
+    return rew * (torch.linalg.norm(ctx.commands[:, :2], dim=1) > 0.1)
 
 
 def _reward_contact_forces(ctx, s):
@@ -169,10 +200,37 @@ def _reward_thigh_pos(ctx, s):
     return _joint_sq_err(ctx, s, s.thigh_joint_ids)
 
 
-def _reward_stumble_feet(ctx, s):
-    f = ctx.link_forces[:, s.feet_ids, :]
+def _reward_calf_pos(ctx, s):
+    return _joint_sq_err(ctx, s, s.calf_joint_ids)
+
+
+def _stumble(f):
+    """1 where some link's horizontal force exceeds 5 times its vertical one."""
     return torch.any(torch.linalg.norm(f[:, :, :2], dim=2) > 5 * torch.abs(f[:, :, 2]),
                      dim=1).float()
+
+
+def _reward_stumble_feet(ctx, s):
+    return _stumble(ctx.link_forces[:, s.feet_ids, :])
+
+
+def _reward_stumble_calves(ctx, s):
+    return _stumble(ctx.link_forces[:, s.calf_link_ids, :])
+
+
+def _reward_calf_collision(ctx, s):
+    f = torch.linalg.norm(ctx.link_forces[:, s.calf_link_ids, :], dim=-1)
+    return torch.sum((f > 0.1).float(), dim=1)
+
+
+def _reward_tracking_pitch(ctx, s):
+    pitch_deg = ctx.pitch * (180.0 / math.pi)
+    return torch.exp(-torch.square(pitch_deg - s.pitch_deg_target) / s.tracking_sigma)
+
+
+def _reward_tracking_roll(ctx, s):
+    roll_deg = ctx.roll * (180.0 / math.pi)
+    return torch.exp(-torch.square(roll_deg - s.roll_deg_target) / s.tracking_sigma)
 
 
 def _stance_flags(ctx, s):
@@ -260,6 +318,46 @@ def _reward_min_height(ctx, s):
     return z_err * (ctx.jump_flags > 0.0).float()
 
 
+# ---------------------------------------------------------------------------
+# G1 humanoid terms (g1_env_broken.py:106-124; `forward_vel`, declared in the
+# reference's config but not implemented there, is the clipped world forward
+# velocity, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+def _feet_in_contact(ctx, s):
+    return torch.linalg.norm(ctx.link_forces[:, s.feet_ids, :], dim=-1) > 1.0
+
+
+def _reward_g1_contact(ctx, s):
+    stance = ctx.phases < 0.55
+    contact = ctx.link_forces[:, s.feet_ids, 2] > 1.0
+    return torch.sum((~(contact ^ stance)).float(), dim=1)
+
+
+def _reward_feet_swing_height(ctx, s):
+    pos_error = torch.square(ctx.feet_pos[:, :, 2] - 0.08) * ~_feet_in_contact(ctx, s)
+    return torch.sum(pos_error, dim=1)
+
+
+def _reward_alive(ctx, s):
+    return torch.ones_like(ctx.roll)
+
+
+def _reward_contact_no_vel(ctx, s):
+    v = ctx.feet_vel * _feet_in_contact(ctx, s)[..., None]
+    return torch.sum(torch.square(v), dim=(1, 2))
+
+
+def _reward_forward_vel(ctx, s):
+    return torch.clamp(ctx.world_lin_vel[:, 0], min=0.0)
+
+
+# Cassie's single-stance term (cassie.py:42-46)
+def _reward_no_fly(ctx, s):
+    contacts = ctx.link_forces[:, s.feet_ids, 2] > 0.1
+    return (torch.sum(contacts.float(), dim=1) == 1).float()
+
+
 REWARD_REGISTRY: Dict[str, Callable] = {
     "lin_vel_z": _reward_lin_vel_z,
     "ang_vel_xy": _reward_ang_vel_xy,
@@ -290,4 +388,21 @@ REWARD_REGISTRY: Dict[str, Callable] = {
     "feet_contact_forces": _reward_contact_forces,
     "progress": _reward_progress,
     "min_height": _reward_min_height,
+    "dof_vel": _reward_dof_vel,
+    "dof_pos_limits": _reward_dof_pos_limits,
+    "dof_vel_limits": _reward_dof_vel_limits,
+    "torque_limits": _reward_torque_limits,
+    "stand_still": _reward_stand_still,
+    "feet_air_time": _reward_feet_air_time,
+    "calf_pos": _reward_calf_pos,
+    "stumble_calves": _reward_stumble_calves,
+    "calf_collision": _reward_calf_collision,
+    "tracking_pitch": _reward_tracking_pitch,
+    "tracking_roll": _reward_tracking_roll,
+    "no_fly": _reward_no_fly,
+    "contact": _reward_g1_contact,
+    "feet_swing_height": _reward_feet_swing_height,
+    "alive": _reward_alive,
+    "contact_no_vel": _reward_contact_no_vel,
+    "forward_vel": _reward_forward_vel,
 }

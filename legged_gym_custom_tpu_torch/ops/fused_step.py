@@ -194,6 +194,17 @@ def build_spec(ma, params, pd, dof_limits, hf_K: int = 0, hf_hs: float = 0.0) ->
     )
 
 
+@functools.lru_cache(maxsize=None)
+def tick_spec(spec: FusedSpec) -> FusedSpec:
+    """The one-tick 'T' spec of `spec`: one decimation tick of direct torques
+    at action scale 1, everything else (substeps, contact, clamps, terrain
+    window) as `spec` has it.  A stateful actuator's control step launches
+    it once per tick with the tick's clipped torques as the actions
+    (physics.engine.tickwise_control_step); cached, so each env builds one
+    library per variant."""
+    return spec._replace(decimation=1, control_type="T", action_scale=1.0)
+
+
 def check_covered(spec: FusedSpec):
     """Raise NotImplementedError for a spec outside the kernel's variants:
     the plane or a heightfield, 'P' or 'T' control, tanh or implicit

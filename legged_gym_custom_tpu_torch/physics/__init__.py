@@ -16,12 +16,14 @@ from .engine import (
     PhysicsState,
     SimParams,
     StepInfo,
+    actuated_control_step,
     control_step,
     eager_control_step,
     effective_joint_inertia,
     link_states,
     patch_K,
     substep,
+    tickwise_control_step,
 )
 from .heightfield import Heightfield, from_raw, height_bilinear, height_min3, plane, surface
 from .patch import LocalPatch, extract as extract_patch

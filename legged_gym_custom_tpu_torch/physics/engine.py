@@ -213,11 +213,11 @@ def patch_K(hf: Heightfield, params: SimParams) -> int:
     return patch.patch_size(params.patch_halfwidth, hf.horizontal_scale)
 
 
-def eager_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,
-                       dr: DomainRandParams, dof_limits: tuple, state: PhysicsState, actions):
-    """The control step in plain PyTorch ops: decimation x substeps with the
-    PD torques refreshed from the current dof state at every tick, as the
-    reference's XLA path (engine.py:301-380)."""
+def _eager_loop(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,
+                dr: DomainRandParams, dof_limits: tuple, state: PhysicsState, actions,
+                torque_fn=None, actuator_state=None):
+    """decimation x substeps in plain PyTorch ops; the torques of each tick
+    are the PD law's, or `torque_fn`'s clipped to the effort limits."""
     dt_sub = params.dt / params.substeps
     inertias = body_inertias(ma, dr.added_mass, dr.com_offset)
     terrain = hf
@@ -225,9 +225,16 @@ def eager_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: 
     if K and state.base_pos.dim() == 2:
         terrain = patch.extract(hf, state.base_pos[0], state.base_pos[1], K)
     tick_sample = params.terrain_tick_sample and not hf.is_plane
+    tlim = soa.bcast(pd.torque_limits, tuple(state.dof_pos.shape[1:]))
     link_forces = tau = None
     for _tick in range(params.decimation):
-        tau = compute_torques(pd, actions, state.dof_pos, state.dof_vel, dr.kp_mult, dr.kd_mult)
+        if torque_fn is None:
+            tau = compute_torques(pd, actions, state.dof_pos, state.dof_vel, dr.kp_mult,
+                                  dr.kd_mult)
+        else:
+            tau, actuator_state = torque_fn(actions, state.dof_pos, state.dof_vel,
+                                            actuator_state)
+            tau = torch.maximum(torch.minimum(tau, tlim), -tlim)
         surface = None
         if tick_sample:
             # freeze the contact surface for this 200 Hz tick
@@ -243,7 +250,29 @@ def eager_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: 
         # mean over the tick's substeps (PhysX contact_collection=2 analog)
         link_forces = lf_sum / params.substeps
     pos, vel = link_states(ma, state)
-    return state, StepInfo(link_forces, pos, vel, tau)
+    return state, StepInfo(link_forces, pos, vel, tau), actuator_state
+
+
+def eager_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,
+                       dr: DomainRandParams, dof_limits: tuple, state: PhysicsState, actions):
+    """The control step in plain PyTorch ops: decimation x substeps with the
+    PD torques refreshed from the current dof state at every tick, as the
+    reference's XLA path (engine.py:301-380)."""
+    return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions)[:2]
+
+
+def _check_kernel_terrain(hf: Heightfield, params: SimParams):
+    """Raise for a heightfield the kernel's variants do not cover."""
+    if hf.is_plane:
+        return
+    if patch_K(hf, params) == 0:
+        raise NotImplementedError(
+            "heightfield terrain with no per-env patch (patch_halfwidth=0): the "
+            "heightfield kernel reads its window, there is no global-table kernel")
+    if not params.terrain_tick_sample:
+        raise NotImplementedError(
+            "terrain_tick_sample=False: the heightfield kernel samples the surface "
+            "once per decimation tick and has no per-substep variant")
 
 
 def control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,
@@ -261,17 +290,9 @@ def control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDPara
     from ..ops import fused_step
 
     terrain = None
+    _check_kernel_terrain(hf, params)
     if not hf.is_plane:
-        K = patch_K(hf, params)
-        if K == 0:
-            raise NotImplementedError(
-                "heightfield terrain with no per-env patch (patch_halfwidth=0): the "
-                "heightfield kernel reads its window, there is no global-table kernel")
-        if not params.terrain_tick_sample:
-            raise NotImplementedError(
-                "terrain_tick_sample=False: the heightfield kernel samples the surface "
-                "once per decimation tick and has no per-substep variant")
-        lp = patch.extract(hf, state.base_pos[0], state.base_pos[1], K)
+        lp = patch.extract(hf, state.base_pos[0], state.base_pos[1], patch_K(hf, params))
         terrain = fused_step.patch_inputs(lp)
     if spec is None:
         spec = fused_step.build_spec(ma, params, pd, dof_limits, hf_K=patch_K(hf, params),
@@ -286,3 +307,60 @@ def control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDPara
     st = PhysicsState(*out_state)
     lpos, lvel = link_states(ma, st)
     return st, StepInfo(link_forces, lpos, lvel, torques)
+
+
+def tickwise_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,
+                          dr: DomainRandParams, dof_limits: tuple, state: PhysicsState, actions,
+                          actuator_state, torque_fn, spec):
+    """A stateful actuator's control step through the fused kernel, one
+    launch per decimation tick.  At each tick `torque_fn` gives the torques
+    from the current dof state, clipped to the effort limits, and one launch
+    of `spec`'s one-tick 'T' spec (`fused_step.tick_spec`) runs that tick's
+    substeps with them as the actions.  On a heightfield the per-env windows
+    are cut once, before the first tick, and every tick reads them, as the
+    reference's XLA path does (engine.py:306-315); the link states are taken
+    once, after the last tick.  `fused_control_step` runs the kernel on CUDA
+    tensors and its plain version on CPU tensors.
+    Returns (state', StepInfo, actuator_state')."""
+    from ..ops import fused_step
+
+    one = fused_step.tick_spec(spec)
+    terrain = None
+    if one.hf_K:
+        lp = patch.extract(hf, state.base_pos[0], state.base_pos[1], one.hf_K)
+        terrain = fused_step.patch_inputs(lp)
+    dr_in = (dr.friction, dr.added_mass, dr.com_offset, dr.kp_mult, dr.kd_mult)
+    tlim = soa.bcast(pd.torque_limits, tuple(state.dof_pos.shape[1:]))
+    st, link_forces, tau = tuple(state), None, None
+    for _tick in range(spec.decimation):
+        tau, actuator_state = torque_fn(actions, st[4], st[5], actuator_state)
+        tau = torch.maximum(torch.minimum(tau, tlim), -tlim).contiguous()
+        st, link_forces, tau = fused_step.fused_control_step(one, st, tau, dr_in, terrain)
+    st = PhysicsState(*st)
+    lpos, lvel = link_states(ma, st)
+    return st, StepInfo(link_forces, lpos, lvel, tau), actuator_state
+
+
+def actuated_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,
+                          dr: DomainRandParams, dof_limits: tuple, state: PhysicsState, actions,
+                          actuator_state, torque_fn, spec=None):
+    """The control step of a stateful actuator model (the ANYmal SEA LSTM),
+    the counterpart of the reference's `control_step(..., torque_fn=...)`
+    (engine.py:301-380): `torque_fn(actions, dof_pos, dof_vel, act_state) ->
+    (tau, act_state')` replaces the PD law at every decimation tick.
+    Returns (state', StepInfo, actuator_state').
+
+    CPU tensors run the eager loop; CUDA tensors run `tickwise_control_step`
+    through the kernel (`spec` is the env's FusedSpec, built here when
+    omitted) and raise rather than fall back to the eager loop."""
+    if not state.dof_pos.is_cuda:
+        return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions, torque_fn,
+                           actuator_state)
+    from ..ops import fused_step
+
+    _check_kernel_terrain(hf, params)
+    if spec is None:
+        spec = fused_step.build_spec(ma, params, pd, dof_limits, hf_K=patch_K(hf, params),
+                                     hf_hs=0.0 if hf.is_plane else hf.horizontal_scale)
+    return tickwise_control_step(ma, hf, params, pd, dr, dof_limits, state, actions,
+                                 actuator_state, torque_fn, spec)

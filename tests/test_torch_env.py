@@ -116,9 +116,10 @@ def test_go2_reset_and_steps_match_reference():
 
 
 def test_go2_env_raises_for_what_is_not_ported():
-    """Only actuator networks still raise NotImplementedError at
-    construction; the command curriculum and progress-stall termination
-    build."""
+    """Nothing of the go2 configs raises any more: the command curriculum and
+    the progress-stall termination build, and `use_actuator_network` on a
+    Go2Env is ignored as in the JAX package (only AnymalEnv builds a torque
+    function; the base hook keeps the PD law)."""
     cfg = _cfg(Go2Cfg)
     cfg.commands.curriculum = True
 
@@ -130,8 +131,11 @@ def test_go2_env_raises_for_what_is_not_ported():
     assert env.stall_time_s == 2.0 and env.cfg.commands.curriculum
     cfg = _cfg(Go2Cfg)
     cfg.control.use_actuator_network = True
-    with pytest.raises(NotImplementedError, match="actuator network"):
-        Go2Env(cfg, SYNTHETIC_GO2_URDF, device="cpu")
+    env = Go2Env(cfg, SYNTHETIC_GO2_URDF, device="cpu")
+    assert env._torque_fn is None
+    cfg_j = _cfg(JGo2Cfg)
+    cfg_j.control.use_actuator_network = True
+    assert JGo2Env(cfg_j, SYNTHETIC_GO2_URDF, name="go2")._torque_fn is None
 
 
 def test_env_entry_point_defaults_to_cuda(monkeypatch):

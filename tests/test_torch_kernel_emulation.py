@@ -45,6 +45,14 @@ CASES = {
     "tree-plane-P-tanh": ("tree", dict(), dict(), 13),
     "tree-hf-T-stiction": ("tree", dict(hf_K=K, hf_hs=HS, control_type="T",
                                         implicit_stiction=True), dict(), 9),
+    # the other robots' builds: ANYmal's one-tick 'T' spec (plane and
+    # heightfield), the bipeds at a pair of lanes a leg (G = 4)
+    "anymal-plane-T-one-tick-pairs": ("anymal_c_flat", dict(control_type="T", one_tick=True),
+                                      dict(lanes_per_branch=2), 6),
+    "anymal-hf-T-one-tick": ("anymal_c_flat", dict(hf_K=K, hf_hs=HS, control_type="T",
+                                                   one_tick=True), dict(), 5),
+    "cassie-hf-P-tanh-pairs": ("cassie", dict(hf_K=K, hf_hs=HS), dict(lanes_per_branch=2), 11),
+    "g1-plane-P-tanh-pairs": ("g1", dict(), dict(lanes_per_branch=2), 13),
 }
 
 
@@ -88,11 +96,20 @@ def _build(spec, layout, out_dir):
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernel_source_on_the_host_matches_plain_version(case, tmp_path):
     model, options, layout, B = CASES[case]
-    urdf, angles = {"go2": (SYNTHETIC_GO2_URDF, GO2_DEFAULT),
-                    "tree": (tree_model.TEST_TREE_URDF, tree_model.DEFAULT_ANGLES)}[model]
+    base_z = (0.15, 0.35)
+    if model == "go2":
+        urdf, angles = SYNTHETIC_GO2_URDF, GO2_DEFAULT
+    elif model == "tree":
+        urdf, angles = tree_model.TEST_TREE_URDF, tree_model.DEFAULT_ANGLES
+    else:
+        urdf, angles, base_z = tree_model.robot_urdf_and_angles(model)
+    options = dict(options)
+    one_tick = options.pop("one_tick", False)
     spec = tree_model.plant_spec(urdf, angles, **options)
+    if one_tick:
+        spec = fused_step.tick_spec(spec)
     handle = _build(spec, layout, str(tmp_path))
-    state, actions, dr = tree_model.model_batch(5, B, angles)
+    state, actions, dr = tree_model.model_batch(5, B, angles, base_z=base_z)
     terrain = tree_model.tree_terrain(6, state, K, HS) if spec.hf_K else None
     ndof = len(spec.parent) - 1
     if spec.fl_dqd:      # a quarter of the joints at rest, for the clamp to hold

@@ -324,3 +324,80 @@ def test_torque_control_stiction_heightfield_kernel_matches_plain_version():
     tlim = torch.tensor(spec.torque_limits, dtype=torch.float32, device="cuda")[:, None]
     torch.testing.assert_close(out[2], torch.maximum(torch.minimum(actions * 5.0, tlim), -tlim),
                                rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------- the other robots
+# The builds of the other robots' tasks at 4096 envs: ANYmal's one-tick 'T'
+# spec on the plane and on the rough terrain (its SEA network gives the
+# torques between launches), Cassie's heightfield spec and G1's plane spec,
+# the bipeds at a pair of lanes a leg (G = 4).
+OTHER_BUILDS = {"anymal_c_flat": "fused_control_step_T", "anymal_c_rough": "fused_control_step_T_hf",
+                "cassie": "fused_control_step_hf", "g1": "fused_control_step"}
+
+
+def _robot_env(task, tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernel has no CPU mode")
+    import torch_actuator_net
+
+    cfg, _ = task_registry.get_cfgs(task)
+    cfg.env.num_envs = B
+    if task.startswith("anymal"):
+        cfg.control.actuator_net_file = torch_actuator_net.write_sea_net(
+            str(tmp_path_factory.mktemp("sea") / "sea.pt"))
+    return task_registry.make_env(task, env_cfg=cfg, device="cuda")[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", list(OTHER_BUILDS))
+def test_other_robot_build_matches_plain_version(task, tmp_path_factory):
+    import torch_tree_model
+
+    env = _robot_env(task, tmp_path_factory)
+    spec = env.fused_spec
+    if env._torque_fn is not None:
+        spec = fused_step.tick_spec(spec)
+    name = fused_step.variant_name(spec)
+    assert name == OTHER_BUILDS[task]
+    args = torch_tree_model.robot_batch(env, 21, B, "cuda")
+    if spec.control_type == "T":      # torques of the SEA network's size
+        args = (args[0], (args[1] * 40.0).contiguous(), *args[2:])
+    before = fused_step.launch_counts()
+    out = fused_step.fused_control_step(spec, *args)
+    torch.cuda.synchronize()
+    after = fused_step.launch_counts()
+    assert after[name] == before.get(name, 0) + 1
+    assert all(after[k] == before[k] for k in before if k != name)
+    ref = fused_step.plain_control_step(spec, *args)
+    _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]),
+                      HF_TOL if spec.hf_K else TOL)
+    assert float(ref[1].abs().max()) > 10.0          # the feet are in contact
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["anymal_c_flat", "anymal_c_rough"])
+def test_actuated_step_on_card_runs_the_one_tick_kernel(task, tmp_path_factory):
+    """`physics.actuated_control_step` on CUDA tensors launches the one-tick
+    'T' build once per decimation tick and agrees with the eager loop on the
+    same tensors, the LSTM state included."""
+    import torch_tree_model
+
+    env = _robot_env(task, tmp_path_factory)
+    state, actions, dr = torch_tree_model.robot_batch(env, 22, B, "cuda")[:3]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    act = tuple(torch.randn((2, 12, 8, B), generator=gen, device="cuda") * 0.3 for _ in range(2))
+    args = (env.ma, env.hf, env.sim_params, env.pd, tphys.DomainRandParams(*dr),
+            env.dof_limits, tphys.PhysicsState(*state), actions)
+    name = OTHER_BUILDS[task]
+    before = fused_step.launch_counts()
+    st, info, act_k = tphys.actuated_control_step(*args, act, env._torque_fn, spec=env.fused_spec)
+    torch.cuda.synchronize()
+    after = fused_step.launch_counts()
+    assert after[name] == before.get(name, 0) + env.fused_spec.decimation
+    assert all(after[k] == before[k] for k in before if k != name)
+    st_e, info_e, act_e = tphys.engine._eager_loop(*args, env._torque_fn, act)
+    tol = HF_TOL if env.fused_spec.hf_K else TOL
+    _assert_close_p99(NAMES, (*st, info.link_forces, info.torques),
+                      (*st_e, info_e.link_forces, info_e.torques), tol)
+    for a, b in zip(act_k, act_e):
+        _assert_close_p99(("dof_vel",), (a,), (b,), tol)

@@ -3,9 +3,12 @@ that walks it (tests/torch_plan_step.py), on the CPU.
 
 The plan is the port's own host code and has no counterpart in the JAX
 package: it says which lane of a warp runs which part of the kinematic tree
-in the CUDA kernel.  It is checked on four models: the synthetic Go2, the tiny
-URDF of test_torch_physics.py, a single chain, and the test tree, which forks
-below the base.  The plan-walking step must equal `plain_control_step` (whose
+in the CUDA kernel.  It is checked on seven models: the synthetic Go2, the tiny
+URDF of test_torch_physics.py, a single chain, the test tree, which forks
+below the base, and the synthetic stand-ins of the other robots the port
+trains: ANYmal-C (4 legs like Go2), and the bipeds Cassie (every joint frame
+a dense rotation) and G1 (planar and tilted joints mixed), 2 branches of
+depth 6 each.  The plan-walking step must equal `plain_control_step` (whose
 parity with JAX `control_step_components` test_torch_physics.py,
 test_torch_hf_step.py and test_torch_k2_step.py hold): a wrong index in the
 plan's tables shows here, where no kernel can run.
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from legged_gym_custom_tpu_torch import SYNTHETIC_GO2_URDF
+from legged_gym_custom_tpu_torch.envs import task_registry
 from legged_gym_custom_tpu_torch.ops import fused_step, lane_plan
 from test_torch_physics import GO2_DEFAULT, TINY_URDF
 import torch_plan_step as plan_step
@@ -54,10 +58,15 @@ CHAIN_URDF = """<robot name="chain">
     <limit lower="-2.5" upper="-0.3" effort="20" velocity="25"/></joint>
 </robot>
 """
-MODELS = ("go2", "tiny", "chain", "tree")
+MODELS = ("go2", "tiny", "chain", "tree", "anymal_c", "cassie", "g1")
 # G, depth, branches, sphere entries per slot, of the base, every lane's parent slots the same
 SHAPES = {"go2": (4, 3, 4, (1, 3, 4), 2, True), "tiny": (1, 1, 1, (1,), 1, True),
-          "chain": (1, 3, 1, (0, 1, 1), 1, True), "tree": (4, 3, 3, (2, 3, 1), 1, False)}
+          "chain": (1, 3, 1, (0, 1, 1), 1, True), "tree": (4, 3, 3, (2, 3, 1), 1, False),
+          "anymal_c": (4, 3, 4, (0, 2, 3), 1, True),
+          "cassie": (2, 6, 2, (0, 0, 2, 2, 2, 2), 1, True),
+          "g1": (2, 6, 2, (0, 0, 2, 2, 0, 4), 1, True)}
+# the task whose config gives a robot's URDF and default angles
+ROBOT_TASKS = {"anymal_c": "anymal_c_flat", "cassie": "cassie", "g1": "g1"}
 VARIANTS = {"plane-P-tanh": dict(), "plane-T-stiction": dict(control_type="T",
                                                              implicit_stiction=True),
             "hf-P-stiction": dict(hf_K=8, hf_hs=0.1, implicit_stiction=True),
@@ -86,13 +95,22 @@ def urdfs(tmp_path_factory):
     root = tmp_path_factory.mktemp("urdf")
     (root / "tiny.urdf").write_text(TINY_URDF)
     (root / "chain.urdf").write_text(CHAIN_URDF)
-    return {"go2": (SYNTHETIC_GO2_URDF, GO2_DEFAULT), "tiny": (str(root / "tiny.urdf"), [0.0]),
-            "chain": (str(root / "chain.urdf"), [0.1, 0.6, -1.2]),
-            "tree": (tree_model.TEST_TREE_URDF, tree_model.DEFAULT_ANGLES)}
+    out = {"go2": (SYNTHETIC_GO2_URDF, GO2_DEFAULT), "tiny": (str(root / "tiny.urdf"), [0.0]),
+           "chain": (str(root / "chain.urdf"), [0.1, 0.6, -1.2]),
+           "tree": (tree_model.TEST_TREE_URDF, tree_model.DEFAULT_ANGLES)}
+    for model, task in ROBOT_TASKS.items():
+        out[model] = tree_model.robot_urdf_and_angles(task)
+    return out
+
+
+def _base_z(urdfs, model):
+    """Base heights of the batches: the robots' own standing range, else
+    model_batch's default."""
+    return urdfs[model][2] if len(urdfs[model]) > 2 else (0.15, 0.35)
 
 
 def _spec(urdfs, model, **variant):
-    urdf, angles = urdfs[model]
+    urdf, angles = urdfs[model][:2]
     return tree_model.plant_spec(urdf, angles, **variant)
 
 
@@ -167,6 +185,13 @@ def test_lanes_and_depth_match_the_tree(urdfs, model):
         assert plan.first == (1, 1, 1) and plan.has_child == (1, 1, 0)
         pair = lane_plan.lane_plan(spec, 2)
         assert (pair.G, pair.n_sph, pair.n_sph_base) == (8, (1, 2, 2), 1)
+    if model in ("cassie", "g1"):   # two chains of 6, a pair of lanes a leg: G = 4
+        assert plan.body.T.tolist() == [[1, 2, 3, 4, 5, 6], [7, 8, 9, 10, 11, 12]]
+        assert plan.pslot_level == (-1, 0, 1, 2, 3, 4) and plan.has_child == (1,) * 5 + (0,)
+        assert plan.rot_axis == {"cassie": (-1,) * 6, "g1": (1, -1, 2, -1, 1, 0)}[model]
+        assert lane_plan.lane_plan(spec, 2).G == 4
+    if model == "anymal_c":         # HAA about x, HFE and KFE about y, identity frames
+        assert plan.rot_axis == (0, 1, 1) and lane_plan.lane_plan(spec, 2).G == 8
     if model == "tree":     # a2 and a3 both hang on a1; b3 hangs on b2
         assert plan.pslot[:, 0].tolist() == [-1, 0, 0] and plan.pslot[:, 1].tolist() == [-1, 0, 1]
         assert plan.body[:, 2].tolist() == [7, -1, -1] and (plan.body[:, 3] == -1).all()
@@ -267,8 +292,8 @@ def test_layout_follows_from_the_spec(urdfs, model):
         lane_plan.lane_plan(star._replace(parent=(-1,) + (0,) * 33))
 
 
-def _walk_and_plain(spec, model_angles, lanes, dtype, B=5):
-    state, actions, dr = tree_model.model_batch(3, B, model_angles, dtype=dtype)
+def _walk_and_plain(spec, model_angles, lanes, dtype, B=5, base_z=(0.15, 0.35)):
+    state, actions, dr = tree_model.model_batch(3, B, model_angles, dtype=dtype, base_z=base_z)
     terrain = tree_model.tree_terrain(4, state, spec.hf_K, spec.hf_hs) if spec.hf_K else None
     plan = lane_plan.lane_plan(spec, lanes)
     got = plan_step.plan_control_step(spec, plan, state, actions, dr, terrain)
@@ -277,20 +302,26 @@ def _walk_and_plain(spec, model_angles, lanes, dtype, B=5):
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
-@pytest.mark.parametrize("model,lanes", [("tiny", 1), ("go2", 1), ("go2", 2), ("tree", 1)])
+@pytest.mark.parametrize("model,lanes", [("tiny", 1), ("go2", 1), ("go2", 2), ("tree", 1),
+                                         ("anymal_c", 2), ("cassie", 1), ("cassie", 2),
+                                         ("g1", 2)])
 def test_plan_walk_matches_plain_version(urdfs, model, lanes, variant):
     """One control step at B = 5 (a ragged size) walking the plan, against
     `plain_control_step`: in float64 to 1e-10, which only a right index
     gives, and in float32 to `FLOAT32_ATOL` (the sums run in another order:
-    wrenches by lane, the branches' inertias by butterfly)."""
+    wrenches by lane, the branches' inertias by butterfly).  The robots stand
+    at their own height: a biped's metre-long legs buried at Go2's 0.15-0.35 m
+    meet contact forces of tens of kN, where float32 rounding alone parts the
+    two orders by millimetres in one step."""
     spec = _spec(urdfs, model, **VARIANTS[variant])
     angles = urdfs[model][1]
-    got, ref = _walk_and_plain(spec, angles, lanes, torch.float64)
+    z = _base_z(urdfs, model)
+    got, ref = _walk_and_plain(spec, angles, lanes, torch.float64, base_z=z)
     for a, b in zip(got, ref):
         assert a.shape == b.shape
         torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)
-    if model == "go2":
+    if model in ("go2", "anymal_c", "cassie", "g1"):
         assert float(ref[6].abs().max()) > 0.0    # some sphere touches in the last tick
-    got, ref = _walk_and_plain(spec, angles, lanes, torch.float32)
+    got, ref = _walk_and_plain(spec, angles, lanes, torch.float32, base_z=z)
     for a, b, atol in zip(got, ref, FLOAT32_ATOL):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)

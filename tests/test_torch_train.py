@@ -84,8 +84,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_port_modules_load_without_jax():
-    """Importing the port's env, terrain, patch, kernel, deploy, play, MPC,
-    bench and profiling modules pulls in neither JAX nor the JAX package,
+    """Importing the port's env (the other robots' too), terrain, patch,
+    kernel, deploy, play, MPC, bench, profiling, recurrent-policy and
+    actuator-network modules pulls in neither JAX nor the JAX package,
     transitively (a fresh interpreter)."""
     code = ("import sys\n"
             "import legged_gym_custom_tpu_torch.envs, legged_gym_custom_tpu_torch.terrain\n"
@@ -104,6 +105,9 @@ def test_port_modules_load_without_jax():
             "import legged_gym_custom_tpu_torch.deploy.gamepad\n"
             "import legged_gym_custom_tpu_torch.scripts.make_gap_scene\n"
             "import legged_gym_custom_tpu_torch.scripts.control_and_play\n"
+            "import legged_gym_custom_tpu_torch.models.recurrent\n"
+            "import legged_gym_custom_tpu_torch.models.actuator_net\n"
+            "import legged_gym_custom_tpu_torch.rl.traj_utils\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
                          cwd=os.path.dirname(PORT_DIR), check=True)
@@ -119,6 +123,9 @@ def test_port_deploy_loads_without_yaml_and_mujoco():
             "import legged_gym_custom_tpu_torch.deploy, legged_gym_custom_tpu_torch.deploy.native\n"
             "import legged_gym_custom_tpu_torch.deploy.mujoco_oracle\n"
             "import legged_gym_custom_tpu_torch.scripts.control_and_play\n"
+            "import legged_gym_custom_tpu_torch.models.recurrent\n"
+            "import legged_gym_custom_tpu_torch.models.actuator_net\n"
+            "import legged_gym_custom_tpu_torch.rl.traj_utils\n"
             "try:\n"
             "    import yaml\n"
             "except ImportError:\n"
