@@ -12,6 +12,9 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                them the builds of phases 3 and 4 that no path runs: K1 at one
                lane per leg, the kernel on the tests' small tree, and the K3
                spec of the MPPI pit course if it names a library of its own):
+               with them the measurement kernels of the roofline
+               (ops/csrc/peaks.cu) and, if it names a library of its own,
+               the K3 spec of scripts/check_fused_gpu.py's receipt;
                K1 (the fused control step on the plane, go2), K3 (its
                heightfield variant, go2_parkour) and two builds of the K2
                options: `fused_control_step_stiction` (go2_stiction's own
@@ -38,20 +41,33 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                platforms between gaps), a quarter of the bases within 0.3 m of
                a platform face or a gap edge, whose spec must name the same
                library as go2_parkour's (no other nvcc build);
-  4. timing  - CUDA-event medians of each kernel and of its plain version;
+  4. timing  - first the roofline path of the bench entry's line 3c
+               (`check_fused_gpu.roofline_bench`, K3 at 4096 envs on the
+               receipt's terrain and full plant): the fp32 FMA, tanhf and
+               device-memory stream rates measured by the kernels of
+               ops/csrc/peaks.cu (each within 20-105 % of the data sheet's),
+               `fused_kernel_roofline_pct` in (0, 100]; each measurement
+               kernel against its plain version and its closed form, timed
+               beside its bound; then
+               CUDA-event medians of each kernel and of its plain version;
                the bound from the bytes of this run's inputs and the
                operations that the kernel's algorithm (block inertias, planar
                joint rotations, one base solve per env) does on them, counted
-               from the plan-walking step of the tests; K1 also at B = 1024
+               by ops/roofline.py from the step that walks the lane plan (the
+               count of the roofline line too); K1 also at B = 1024
                and 16384; and K1 in turns within this call at a lane per leg
                (G = 4) against a pair of lanes per leg (G = 8), at MPPI's
                batches B*K = 128 and 65536 and at 4096-16384 envs, with K1's
                bound at 65536 rollouts in the layout the wrapper runs there
-               (G = 4);
-  5. closed loop - 25 control steps of K1, K3 and the stiction kernel, each
+               (G = 4); every build's bound from the data sheet's peaks and
+               from those measured; last the K3 receipt, `check_fused_gpu
+               --terrain --full_plant --batch 1024 --rollout 25` (parity,
+               timing, the closed-loop KS gate 0.05 over 25 steps with the
+               windows cut anew every step: K3's closed loop; exactly 77
+               launches);
+  5. closed loop - 25 control steps of K1 and the stiction kernel, each
                beside its plain version from one seeded batch of 1024 envs
-               under one action sequence (K3 on the go2_parkour terrain, its
-               windows cut anew every step): Kolmogorov-Smirnov distance of
+               under one action sequence: Kolmogorov-Smirnov distance of
                the final joint angles and base heights under 0.05;
   6. paths   - `scripts.train --task go2_parkour --num_envs 4096
                --max_iterations 3`, the same for `--task go2`, then the
@@ -132,6 +148,18 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                launches for ANYmal, 1 + 24 x iterations for the others, finite
                losses, a profile of each task's step and the SEA LSTM's share
                of an ANYmal step.
+ 11. jump    - the jump-teacher pipeline on phase 6's cliff checkpoint:
+               `scripts.jump_teacher --mode probe` (the grid's 144 combos x
+               500 steps at gap width 0.25), `--mode collect` (256 envs x
+               widths 0.20, 0.25, 0.30 x 500 steps, `--min_cross 0`, triggers
+               forced by `--params`), `scripts.jump_distill` (1500 Adam steps
+               at batch 4096) and one `scripts.train` iteration of
+               go2_parkour_cliff resumed from the distilled run: the near
+               edges measured (no fallback line), K3 exactly once per env
+               step (and once per `reset_all`) and nothing else, a finite
+               dataset with teacher steps, finite and falling distill losses,
+               the privileged encoder bit-equal before and after distill (the
+               reference's fault), the resume at ROA coefficient 0.1.
 Then it prints the kernels' JSON line, the card's line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -150,11 +178,13 @@ import time
 import numpy as np
 import torch
 
+from legged_gym_custom_tpu_torch.ops.roofline import DATASHEET_PEAKS
+from legged_gym_custom_tpu_torch.utils.profiling import cuda_time_ms
+
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): fp32 outside
 # the tensor cores and HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-SM_CLOCK_HZ = 1.98e9      # H100 SXM boost clock: sizes the spin that lets the host run ahead
+PEAK_FP32_FLOPS = DATASHEET_PEAKS["fma_gflops"] * 1e9
+PEAK_BYTES_PER_S = DATASHEET_PEAKS["hbm_gbps"] * 1e9
 AHEAD_MS = 60.0           # 50 launches of a wrapper that takes ~0.2 ms of host time each
 NUM_ENVS = 4096
 TRAIN_ITERATIONS = 3
@@ -192,6 +222,18 @@ SEA_NET = os.path.join(HERE, "build", "actuator_nets", "sea_stand_in.pt")
 SEA_TORQUE = 40.0
 OTHER_PLAIN_REPS = 3
 LSTM_TOLERANCE = (1e-3, 1e-3)   # hidden and cell lie in (-1, 1), as lin_vel's scale
+# phase 4: the K3 receipt of scripts/check_fused_gpu.py (its envs and
+# closed-loop steps); a measured rate must lie in this share of the data sheet's
+RECEIPT_ENVS, RECEIPT_ROLLOUT = 1024, 25
+PEAK_SHARE = (0.20, 1.05)
+PEAKS_SOURCE = "legged_gym_custom_tpu_torch/ops/csrc/peaks.cu"
+PEAKS_REFERENCE = "legged_gym_custom_tpu/ops/roofline.py"
+# phase 11: the jump pipeline on the cliff stage's checkpoint (phase 6 saves
+# it as model_<iteration>), at the tools' own widths; collect fires its
+# triggers on a policy trained for a few iterations only
+CLIFF_ITERATION = TRAIN_ITERATIONS + len(LADDER)
+JUMP_FORCED = '{"trigger_d": 100.0, "trigger_min_vx": -100.0}'
+JUMP_WIDTHS = "0.20,0.25,0.30"
 SOURCE = "legged_gym_custom_tpu_torch/ops/csrc/fused_step.cu"
 REFERENCE = "legged_gym_custom_tpu/ops/fused_step.py"
 # Per-output tolerances (atol, rtol) of tests/test_fused_step.py:126-135 (K1)
@@ -296,33 +338,17 @@ def zero_sets_agree(label, qd_k, qd_p) -> bool:
     return differ <= 0.01 * zk.numel()
 
 
-def ks_distance(a: np.ndarray, b: np.ndarray) -> float:
-    """Two-sample Kolmogorov-Smirnov statistic."""
-    a, b = np.sort(a.ravel()), np.sort(b.ravel())
-    grid = np.concatenate([a, b])
-    cdf_a = np.searchsorted(a, grid, side="right") / a.size
-    cdf_b = np.searchsorted(b, grid, side="right") / b.size
-    return float(np.abs(cdf_a - cdf_b).max())
-
-
-def closed_loop_ks(label, spec, device, env=None) -> bool:
-    """KS_STEPS control steps of the kernel and of its plain version from one
-    seeded batch under one action sequence (an AR(1) of seeded normals, as
-    tests/test_fused_step.py:374-378): the distributions of the final joint
-    angles and base heights must agree.  Stick and slip decide differently
-    from a one-ULP seed, so single envs may part; the distribution must not.
-    A heightfield spec starts over `env`'s terrain and cuts each side's
-    windows anew at every step, as the engine does."""
+def closed_loop_ks(label, spec, device) -> bool:
+    """KS_STEPS control steps of a plane build and of its plain version from
+    one seeded batch under one action sequence (an AR(1) of seeded normals,
+    as tests/test_fused_step.py:374-378): the distributions of the final
+    joint angles and base heights must agree.  Stick and slip decide
+    differently from a one-ULP seed, so single envs may part; the
+    distribution must not.  (K3's closed loop is phase 4's receipt.)"""
     from legged_gym_custom_tpu_torch.ops import fused_step
-    from legged_gym_custom_tpu_torch.physics import patch
+    from legged_gym_custom_tpu_torch.scripts.check_fused_gpu import ks_stat
 
-    if spec.hf_K:
-        state0, _, dr = parkour_batch(env, 21, device, KS_ENVS)[:3]
-        window = lambda st: (fused_step.patch_inputs(
-            patch.extract(env.hf, st[0][0], st[0][1], spec.hf_K)),)
-    else:
-        state0, _, dr = rand_batch(21, KS_ENVS, device)
-        window = lambda st: ()
+    state0, _, dr = rand_batch(21, KS_ENVS, device)
     gen = torch.Generator(device=device).manual_seed(77)
     st_k = st_p = state0
     a = torch.zeros((12, KS_ENVS), device=device)
@@ -330,12 +356,12 @@ def closed_loop_ks(label, spec, device, env=None) -> bool:
     for _ in range(KS_STEPS):
         a = 0.8 * a + 0.2 * torch.randn(a.shape, generator=gen, device=device) * 1.5
         act = a.clamp(-3.14, 3.14).contiguous()
-        st_k = fused_step.fused_control_step(spec, st_k, act, dr, *window(st_k))[0]
-        st_p = tuple(t.contiguous() for t in
-                     fused_step.plain_control_step(spec, st_p, act, dr, *window(st_p))[0])
+        st_k = fused_step.fused_control_step(spec, st_k, act, dr)[0]
+        st_p = tuple(t.contiguous() for t in fused_step.plain_control_step(spec, st_p, act, dr)[0])
     torch.cuda.synchronize()
-    ks_q = ks_distance(st_k[4].cpu().numpy(), st_p[4].cpu().numpy())
-    ks_z = ks_distance(st_k[0][2].cpu().numpy(), st_p[0][2].cpu().numpy())
+    flat = lambda t: t.flatten().cpu().numpy()
+    ks_q = ks_stat(flat(st_k[4]), flat(st_p[4]))
+    ks_z = ks_stat(flat(st_k[0][2]), flat(st_p[0][2]))
     finite = all(bool(torch.isfinite(t).all()) for t in (*st_k, *st_p))
     held = int((st_k[5] == 0.0).sum())
     log(f"[closed loop] {label}: {KS_STEPS} control steps, {KS_ENVS} envs, {time.time() - t0:.1f}s; "
@@ -343,56 +369,6 @@ def closed_loop_ks(label, spec, device, env=None) -> bool:
         f"{finite}; {held} (joint, env) entries held at qd == 0 at the end; max |dof_pos "
         f"difference| {float((st_k[4] - st_p[4]).abs().max()):.3e}")
     return finite and ks_q < KS_GATE and ks_z < KS_GATE
-
-
-def count_operations(fn, *args) -> int:
-    """Arithmetic operations `fn` performs on its tensors, from an aten-level
-    trace: each elementwise or reduction op counts its output elements (an
-    FMA written as mul + add counts 2, as the fp32 peak does)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    arith = {
-        "add", "sub", "mul", "div", "neg", "rsub", "reciprocal", "sqrt", "rsqrt", "cos", "sin",
-        "tanh", "exp", "log", "pow", "clamp", "clamp_min", "clamp_max", "minimum", "maximum",
-        "where", "lt", "le", "gt", "ge", "eq", "ne", "bitwise_or", "bitwise_and", "logical_or",
-        "abs", "square", "sum", "mean", "floor",
-    }
-
-    class Counter(TorchDispatchMode):
-        total = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            name = func.overloadpacket.__name__.rstrip("_")
-            if name in arith and isinstance(out, torch.Tensor):
-                Counter.total += out.numel()
-            return out
-
-    with Counter():
-        fn(*args)
-    return Counter.total
-
-
-def cuda_time_ms(fn, reps: int, warmup: int = 3, ahead_ms: float = 0.0) -> float:
-    """Median of `reps` CUDA-event timings of `fn()`, after `warmup` calls.
-    A kernel that takes less than its Python wrapper takes to enqueue it would
-    be timed at the host's pace; `ahead_ms` first keeps the card spinning that
-    long, so that every launch and its two events are already queued when the
-    card reaches them and each pair of events brackets device time only."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    if ahead_ms:
-        torch.cuda._sleep(int(ahead_ms * 1e-3 * SM_CLOCK_HZ))
-    events = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return float(np.median([start.elapsed_time(end) for start, end in events]))
 
 
 def compare(names, got, ref, tolerances):
@@ -471,13 +447,11 @@ def check_kernel(label, names, tolerances, out_k, out_p):
     return ok, max(r["max_abs"] for r in rows.values())
 
 
-def time_kernel(label, spec, args, out_k, plain_reps: int = 5):
+def time_kernel(label, spec, args, out_k, plain_reps: int = 5, peaks=None):
     """CUDA-event medians of the kernel and its plain version, bytes and
-    operations of this run's inputs, and the bound they give.  The operations
-    are those of the kernel's algorithm, counted on one env from the tests'
-    step that walks the lane plan at one lane per branch (nothing computed
-    twice); the plain version's count, with dense 6x6 inertias and dense
-    joint rotations, is printed beside it and bounds nothing."""
+    operations of this run's inputs, and the bound they give, from the data
+    sheet's peaks and from `peaks`, those measured on this card
+    (ops/roofline.py), as `kernel_bound` counts them."""
     from legged_gym_custom_tpu_torch.ops import fused_step
 
     call = lambda: fused_step.fused_control_step(spec, *args)
@@ -485,43 +459,57 @@ def time_kernel(label, spec, args, out_k, plain_reps: int = 5):
     host_ms = cuda_time_ms(call, reps=50)
     plain_ms = cuda_time_ms(lambda: fused_step.plain_control_step(spec, *args),
                             reps=plain_reps, warmup=1)
-    b = kernel_bound(spec, args, (*out_k[0], out_k[1], out_k[2]))
+    b = kernel_bound(spec, args, (*out_k[0], out_k[1], out_k[2]), peaks)
     B = args[1].shape[-1]
+    measured = ""
+    if peaks:
+        measured = (f"; from the peaks measured on this card {b['measured_bound_ms']:.5f} ms by "
+                    f"{b['measured_bound_by']} ({b['measured_bytes_ms']:.5f} ms bytes, "
+                    f"{b['measured_ops_ms']:.5f} ms ops), {ms / b['measured_bound_ms']:.1f}x")
     log(f"[timing] {label} B={B}: {ms:.4f} ms on the card (median of 50, launches queued "
         f"ahead), {host_ms:.4f} ms a call at the wrapper's pace; plain {plain_ms:.2f} ms "
-        f"(median of {plain_reps}); {b['bytes']} bytes, {b['ops']} fp32 ops of the kernel's "
-        f"algorithm ({b['ops'] // B} an env; the plain version does {b['plain_ops'] // B}) -> "
-        f"bound {b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bytes_ms']:.5f} ms bytes, "
-        f"{b['ops_ms']:.5f} ms ops); {ms / b['bound_ms']:.1f}x the bound")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        f"(median of {plain_reps}); {b['bytes']} bytes, {b['flops']} flops and "
+        f"{b['transcendentals']} transcendentals of the kernel's algorithm "
+        f"({b['flops'] // B} and {b['transcendentals'] // B} an env) -> "
+        f"bound from the data sheet {b['bound_ms']:.5f} ms by {b['bound_by']} "
+        f"({b['bytes_ms']:.5f} ms bytes, {b['ops_ms']:.5f} ms ops); {ms / b['bound_ms']:.1f}x "
+        f"the bound{measured}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                measured_bound_ms=b.get("measured_bound_ms"))
 
 
-def kernel_bound(spec, args, outs) -> dict:
+def kernel_bound(spec, args, outs, peaks=None) -> dict:
     """The least time the card could take for a control step on `args`
     (state, actions, dr[, terrain]) giving `outs`: each input read and each
     output written once over the memory rate, against the operations of the
-    kernel's algorithm, counted on one env from the tests' step that walks
-    the lane plan at one lane per branch, over the fp32 peak."""
-    import torch_plan_step
-
-    from legged_gym_custom_tpu_torch.ops import fused_step, lane_plan
+    kernel's algorithm (ops/roofline.py::count_kernel_ops, the step that
+    walks the lane plan, on one env), its flops over the fp32 rate and its
+    transcendentals over the special-function rate, the two pipes at once.
+    `bound_ms` takes the data sheet's rates; with `peaks` (ops/roofline.py's
+    measured ones), `measured_bound_ms` takes this card's."""
+    from legged_gym_custom_tpu_torch.ops import roofline
 
     state, actions, dr = args[:3]
     terrain = args[3] if len(args) > 3 else None
     tensors = (*state, actions, *dr, *(terrain or ()), *outs)
     n_bytes = sum(t.numel() * t.element_size() for t in tensors)
-    one = lambda ts: tuple(t[..., :1].contiguous().cpu() for t in ts)
-    one_env = [one(state), actions[:, :1].contiguous().cpu(), one(dr)]
-    if terrain is not None:
-        one_env.append(tuple(t[:1].contiguous().cpu() for t in terrain))
     B = actions.shape[-1]
-    plan = lane_plan.lane_plan(spec, 1)
-    ops = count_operations(torch_plan_step.plan_control_step, spec, plan, *one_env) * B
-    plain_ops = count_operations(fused_step.plain_control_step, spec, *one_env) * B
-    bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
-    return dict(bytes=n_bytes, ops=ops, plain_ops=plain_ops, bytes_ms=bytes_ms, ops_ms=ops_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    counts = roofline.count_kernel_ops(spec)
+    flops, trans = counts["flops"] * B, counts["transcendentals"] * B
+
+    def bound(rates):
+        b_ms = n_bytes / (rates["hbm_gbps"] * 1e9) * 1e3
+        o_ms = max(flops / (rates["fma_gflops"] * 1e9), trans / (rates["trans_gops"] * 1e9)) * 1e3
+        return b_ms, o_ms, max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+    bytes_ms, ops_ms, bound_ms, bound_by = bound(DATASHEET_PEAKS)
+    out = dict(bytes=n_bytes, ops=flops + trans, flops=flops, transcendentals=trans,
+               bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
+    if peaks:
+        m = bound(peaks)
+        out.update(measured_bytes_ms=m[0], measured_ops_ms=m[1], measured_bound_ms=m[2],
+                   measured_bound_by=m[3])
+    return out
 
 
 def only_launched(what: str, variant: str, expected: int) -> bool:
@@ -794,7 +782,7 @@ def ladder_path(variant: str, log_root: str, first_run: str, card: str):
     second would share a name prefix, and the newest by name may be the wrong
     one); the spawn check on the bootcamp env, the stall check on the commit
     env, and eval_parkour on the cliff checkpoint.  Returns the launches of
-    all of it, or None on a failed gate."""
+    all of it and the cliff stage's run, or None on a failed gate."""
     launches, prev = 0, first_run
     for i, stage in enumerate(LADDER):
         it = TRAIN_ITERATIONS + i
@@ -829,7 +817,7 @@ def ladder_path(variant: str, log_root: str, first_run: str, card: str):
             launches += n
         del runner, result
     n = eval_path(variant, log_root, prev, card)
-    return None if n < 0 else launches + n
+    return None if n < 0 else (launches + n, prev)
 
 
 def pit_course(device):
@@ -1231,7 +1219,7 @@ def lstm_share(runner, step: dict, card: str):
         f"{step['device_ms']:.3f} ms device time | {card}")
 
 
-def other_robots_phase(device, card, envs, specs, names):
+def other_robots_phase(device, card, envs, specs, names, peaks):
     """Phase 10: the other robots' builds at 4096 envs against their plain
     versions and timed, the tick-wise actuated step against the eager loop on
     the card, and the four tasks trained through the train CLI's `train`.
@@ -1261,7 +1249,8 @@ def other_robots_phase(device, card, envs, specs, names):
         log(f"[check] {names[task]} {where}: plain max contact force {contact:.1f} N "
             f"{'ok' if ok_k else 'FAIL'} | {card}")
         ok &= ok_k and contact > 10.0
-        timings[task] = time_kernel(names[task], spec, args, out, plain_reps=OTHER_PLAIN_REPS)
+        timings[task] = time_kernel(names[task], spec, args, out, plain_reps=OTHER_PLAIN_REPS,
+                                    peaks=peaks)
     if not ok:
         log("[check] FAIL: an other robot's build disagrees with its plain version")
         return None
@@ -1311,6 +1300,288 @@ def other_robots_phase(device, card, envs, specs, names):
         del runner
     log(f"[other robots] phase 10 in {time.time() - t_phase:.1f}s")
     return timings, errs, launches
+
+
+def measured_peaks_phase(card):
+    """Phase 4 (a): the roofline path as the bench entry's line 3c runs it
+    (`check_fused_gpu.roofline_bench`: K3 on the receipt's terrain and full
+    plant at 4096 envs, the three peaks measured by the kernels of
+    ops/csrc/peaks.cu), every counter 0 just before it.  Returns (the
+    report, the measured peaks, the measurement kernels' launches and the
+    K3 launches in it), or None on a failed gate."""
+    from legged_gym_custom_tpu_torch.ops import fused_step, roofline
+    from legged_gym_custom_tpu_torch.scripts import check_fused_gpu
+
+    fused_step.reset_launch_counts()
+    roofline.reset_launch_counts()
+    t0 = time.time()
+    report = check_fused_gpu.roofline_bench(batch=NUM_ENVS, terrain=True, full_plant=True,
+                                            device="cuda")
+    torch.cuda.synchronize()
+    peak_launches = roofline.launch_counts()
+    log(f"[roofline] {json.dumps(report)} | {card}")
+    peaks = report["measured_peaks"]
+    ok = 0.0 < report["roofline_pct"] <= 100.0
+    for name, value in peaks.items():
+        sheet = roofline.DATASHEET_PEAKS[name]
+        share = value / sheet
+        within = PEAK_SHARE[0] <= share <= PEAK_SHARE[1]
+        ok &= within
+        log(f"[peaks] {name}: measured {value} against the data sheet's {sheet:.1f}: "
+            f"{share:.1%} (gate {PEAK_SHARE[0]:.0%}-{PEAK_SHARE[1]:.0%}) "
+            f"{'ok' if within else 'FAIL'} | {card}")
+    log(f"[roofline] fused_kernel_roofline_pct {report['roofline_pct']} % (K3 at {NUM_ENVS} "
+        f"envs, terrain, full plant: {report['achieved_ms']} ms against a speed of light of "
+        f"{report['speed_of_light_ms']} ms, {report['bound']}-bound; {report['per_env_flops']} "
+        f"flops, {report['per_env_transcendentals']} transcendentals and "
+        f"{report['per_env_hbm_bytes']} bytes an env) in {time.time() - t0:.1f}s; measurement "
+        f"kernel launches {json.dumps(peak_launches)} | {card}")
+    k3 = 31   # roofline_bench: one warm-up and 30 timed launches
+    if not ok or not only_launched("roofline_bench", "fused_control_step_hf", k3) or \
+            min(peak_launches.values()) == 0:
+        log("[roofline] FAIL: a measured peak outside its share of the data sheet, a roofline "
+            "share outside (0, 100], or a launch missing")
+        return None
+    return report, peaks, peak_launches, k3
+
+
+def measurement_kernel_rows(peak_launches, card):
+    """Phase 4 (b): each measurement kernel against its plain version and
+    its closed form on the card, at ops/roofline.py's shapes, then timed
+    (a launch, the plain version, the one PyTorch call where there is one)
+    beside its bound.  Returns the kernels-line rows, or None on a failed
+    gate.  Launches here are comparisons and timings, not the path's."""
+    from legged_gym_custom_tpu_torch.ops import roofline
+
+    dev = torch.device("cuda", 0)
+    n, n_stream = roofline.CHAIN_ELEMENTS, roofline.STREAM_ELEMENTS
+    rows, ok = [], True
+    # the FMA pipes and the special-function units run at once
+    sheet_ops = lambda flops, tanhs=0: max(flops / PEAK_FP32_FLOPS,
+                                           tanhs / (roofline.DATASHEET_PEAKS["trans_gops"] * 1e9))
+
+    # FMA chain: c <- c * 1 + 0.5 on halves is exact in float32
+    x = torch.arange(n, device=dev, dtype=torch.float32) * 0.5 - 1024.0
+    iters = roofline.FMA_ITERS
+    steps = iters * roofline.FMA_INNER
+    got = roofline.fma_chain(x, 1.0, 0.5, iters)
+    plain = roofline.plain_fma_chain(x, 1.0, 0.5, iters)
+    closed = x + 0.5 * steps
+    err = float((got - plain).abs().max())
+    exact = bool(torch.equal(got, closed))
+    ones = torch.ones(n, device=dev)
+    ms = cuda_time_ms(lambda: roofline.fma_chain(ones, 1.0000001, 1e-7, iters), reps=10)
+    plain_ms = cuda_time_ms(lambda: roofline.plain_fma_chain(ones, 1.0000001, 1e-7, iters),
+                            reps=1, warmup=1)
+    flops = 2.0 * n * steps
+    b_ms, o_ms = 8.0 * n / PEAK_BYTES_PER_S * 1e3, sheet_ops(flops) * 1e3
+    rows.append(("fma_chain", 155, err, ms, plain_ms, max(b_ms, o_ms), b_ms, o_ms, None))
+    log(f"[peaks] fma_chain on {n} floats x {steps} dependent FMAs: kernel - plain max abs "
+        f"{err:.3e}, the closed form x + {0.5 * steps} exactly: {exact} "
+        f"{'ok' if exact and err == 0.0 else 'FAIL'}")
+    ok &= exact and err == 0.0
+
+    # tanh chain: c <- tanh(c) from x in (0, 1] decays like sqrt(3 / (2 n)),
+    # so the result tells how many steps ran; held against the chain in
+    # float64, and against that chain at half the steps to show the gate sees it
+    x = torch.arange(1, n + 1, device=dev, dtype=torch.float32) / n
+    iters = roofline.TANH_ITERS
+    steps = iters * roofline.TANH_INNER
+    got = roofline.tanh_chain(x, 0.0, iters)
+    plain = roofline.plain_tanh_chain(x, 0.0, iters)
+    ref = x.double()
+    for i in range(steps):
+        ref = torch.tanh(ref)
+        if i + 1 == steps // 2:
+            ref_half = ref
+    err = float((got - plain).abs().max())
+    err_ref = float((got.double() - ref).abs().max())
+    half_gap = float((ref_half - ref).abs().max())
+    halves = torch.full((n,), 0.5, device=dev)
+    ms = cuda_time_ms(lambda: roofline.tanh_chain(halves, 1.0000001, iters), reps=10)
+    plain_ms = cuda_time_ms(lambda: roofline.plain_tanh_chain(halves, 1.0000001, iters),
+                            reps=3, warmup=1)
+    b_ms, o_ms = 8.0 * n / PEAK_BYTES_PER_S * 1e3, sheet_ops(n * steps, n * steps) * 1e3
+    rows.append(("tanh_chain", 176, err, ms, plain_ms, max(b_ms, o_ms), b_ms, o_ms, None))
+    tanh_ok = err <= 1e-6 and err_ref <= 1e-6 and half_gap > 1e-3
+    log(f"[peaks] tanh_chain on {n} floats x {steps} dependent tanhf (b = 0): kernel - plain "
+        f"max abs {err:.3e}, against the chain in float64 {err_ref:.3e} (gate 1e-6; the chain "
+        f"at {steps // 2} steps lies {half_gap:.3e} from it) {'ok' if tanh_ok else 'FAIL'}")
+    ok &= tanh_ok
+
+    # stream: out = x + 1 over 256 MB, exact
+    x = (torch.arange(n_stream, device=dev) % 4096).float() * 0.25
+    out = torch.empty_like(x)
+    got = roofline.stream_add(x, out)
+    err = float((got - roofline.plain_stream_add(x)).abs().max())
+    ms = cuda_time_ms(lambda: roofline.stream_add(x, out), reps=20)
+    plain_ms = cuda_time_ms(lambda: roofline.plain_stream_add(x), reps=20)
+    library_ms = cuda_time_ms(lambda: torch.add(x, 1.0, out=out), reps=20)
+    b_ms, o_ms = 8.0 * n_stream / PEAK_BYTES_PER_S * 1e3, sheet_ops(n_stream) * 1e3
+    rows.append(("stream_add", 196, err, ms, plain_ms, max(b_ms, o_ms), b_ms, o_ms, library_ms))
+    log(f"[peaks] stream_add on {n_stream * 4 / 1e6:.0f} MB: kernel - plain max abs {err:.3e} "
+        f"{'ok' if err == 0.0 else 'FAIL'}")
+    ok &= err == 0.0
+    del x, out, got
+
+    line_rows = []
+    for name, line, err, ms, plain_ms, bound_ms, b_ms, o_ms, library_ms in rows:
+        by = "bytes" if b_ms >= o_ms else "operations"
+        lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
+        log(f"[timing] {name}: {ms:.4f} ms a launch (CUDA events, median), plain {plain_ms:.3f} "
+            f"ms, one PyTorch call {lib}; bound {bound_ms:.5f} ms by {by} ({b_ms:.5f} ms bytes, "
+            f"{o_ms:.5f} ms operations, data sheet); {ms / bound_ms:.2f}x the bound | {card}")
+        line_rows.append(dict(name=name, route="cuda", source=PEAKS_SOURCE,
+                              replaces=f"{PEAKS_REFERENCE}:{line}",
+                              launches=peak_launches[name], max_abs_err=err, ms=ms,
+                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                              library_ms=library_ms))
+    if not ok:
+        log("[peaks] FAIL: a measurement kernel disagrees with its plain version or closed form")
+        return None
+    return line_rows
+
+
+def receipt_check(card):
+    """Phase 4 (c): `scripts.check_fused_gpu --terrain --full_plant --batch
+    1024 --rollout 25`, the K3 receipt, with the counters 0 just before;
+    its JSON goes to build/receipts/.  Returns its K3 launches, or -1 on a
+    failed gate."""
+    from legged_gym_custom_tpu_torch.ops import fused_step
+    from legged_gym_custom_tpu_torch.scripts import check_fused_gpu
+
+    out = os.path.join(HERE, "build", "receipts", "fused_kernel_receipt_terrain.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    iters = 50
+    fused_step.reset_launch_counts()
+    t0 = time.time()
+    try:
+        result = check_fused_gpu.main(["--terrain", "--full_plant", "--batch", str(RECEIPT_ENVS),
+                                       "--rollout", str(RECEIPT_ROLLOUT), "--iters", str(iters),
+                                       "--out", out])
+    except SystemExit as e:
+        log(f"[receipt] FAIL: {e}")
+        return -1
+    torch.cuda.synchronize()
+    n = 1 + (1 + iters) + RECEIPT_ROLLOUT   # parity step, timing, rollout
+    log(f"[receipt] check_fused_gpu --terrain --full_plant --batch {RECEIPT_ENVS} --rollout "
+        f"{RECEIPT_ROLLOUT}: kernel {result['kernel_ms']} ms, plain {result['plain_ms']} ms "
+        f"(x{result['speedup']}); parity p99 {json.dumps(result['parity_p99_abs'])}; KS "
+        f"{json.dumps(result['rollout_ks'])} (gate {result['rollout_ks_gate']}) pass "
+        f"{result['rollout_pass']}; {time.time() - t0:.1f}s -> {os.path.relpath(out, HERE)} "
+        f"| {card}")
+    if not result["rollout_pass"] or not only_launched("receipt", "fused_control_step_hf", n):
+        return -1
+    return n
+
+
+def jump_phase(variant: str, log_root: str, cliff_run: str, card: str):
+    """Phase 11: the jump-teacher pipeline on the cliff stage's checkpoint,
+    through the tools' entry points at their own widths: probe (144 combos
+    x 500 steps), collect (256 envs x 3 widths x 500 steps, triggers forced,
+    no crossing required), distill (1500 Adam steps at batch 4096) and one
+    resumed PPO iteration of go2_parkour_cliff on the distilled run.  Every
+    counter is 0 just before each tool and read just after.  Returns the K3
+    launches, or None on a failed gate."""
+    from legged_gym_custom_tpu_torch.ops import fused_step
+    from legged_gym_custom_tpu_torch.scripts import jump_distill, jump_teacher
+
+    t_phase = time.time()
+    ckpt = os.path.join(log_root, cliff_run, f"model_{CLIFF_ITERATION}.pt")
+    jump_root = os.path.join(os.path.dirname(log_root), "chip_smoke_jump")
+    shutil.rmtree(jump_root, ignore_errors=True)
+    dataset = os.path.join(jump_root, "jump_dataset.npz")
+    steps_run = []
+    rollout = jump_teacher.rollout
+
+    def recording(*args, **kwargs):   # the env steps of each rollout, for the launch gate
+        result = rollout(*args, **kwargs)
+        steps_run.append(result["steps"])
+        return result
+
+    def run(what, argv):
+        steps_run.clear()
+        fused_step.reset_launch_counts()
+        printed = Tee(sys.stdout)
+        t0 = time.time()
+        with contextlib.redirect_stdout(printed):
+            result = jump_teacher.main(argv + ["--ckpt", ckpt, "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        text = printed.getvalue()
+        measured = text.count("# measured gap near-edges") == len(steps_run) and \
+            "WARNING" not in text
+        launches = sum(2 + n for n in steps_run)   # build_env's and rollout's reset_all
+        log(f"[jump] {what}: rollouts of {steps_run} env steps in {seconds:.1f}s; near edges "
+            f"measured, no fallback line: {measured} | {card}")
+        ok = measured and only_launched(f"jump_teacher {what}", variant, launches)
+        return result, seconds, launches, ok
+
+    jump_teacher.rollout = recording
+    try:
+        r, seconds, n_probe, ok = run("probe", ["--mode", "probe", "--gap_width", "0.25"])
+        B = len(r["gaps"])
+        log(f"[jump] probe: {B} combos x {steps_run[0]} steps, {B * steps_run[0] / seconds:.0f} "
+            f"env-steps/s; triggers {int(r['n_trig'].sum())}, assists "
+            f"{int(r['assists'].sum())}, combos crossing >= 1 gap {int((r['gaps'] >= 1).sum())}, "
+            f"alive at the end {int(r['alive'].sum())} | {card}")
+        if not ok:
+            return None
+        ds, seconds, n_collect, ok = run("collect", [
+            "--mode", "collect", "--widths", JUMP_WIDTHS, "--min_cross", "0", "--params",
+            JUMP_FORCED, "--out", dataset])
+    finally:
+        jump_teacher.rollout = rollout
+    finite = all(bool(np.isfinite(v).all()) for v in ds.values())
+    teach = int(ds["teach"].sum())
+    log(f"[jump] collect: 256 envs x {len(steps_run)} widths, {sum(steps_run)} env steps of "
+        f"each env in {seconds:.1f}s, {256 * sum(steps_run) / seconds:.0f} env-steps/s; dataset "
+        f"{ds['obs'].shape[0]} samples, {teach} teacher steps, finite {finite} | {card}")
+    if not ok or not finite or teach == 0:
+        log("[jump] FAIL: the dataset is not finite or holds no teacher step")
+        return None
+
+    # distill: the privileged encoder must come out as it went in (the
+    # reference's fault: no gradient reaches it)
+    source = torch.load(ckpt, map_location="cpu", weights_only=True)["model_state_dict"]
+    out = os.path.join(log_root, "chip_smoke_distill", f"model_{CLIFF_ITERATION}.pt")
+    fused_step.reset_launch_counts()
+    t0 = time.time()
+    runner, losses = jump_distill.main(["--dataset", dataset, "--ckpt", ckpt, "--out", out,
+                                        "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    after = runner.nets.state_dict()
+    priv = [k for k in source if k.startswith("priv_encoder.")]
+    priv_same = all(torch.equal(after[k].cpu(), source[k]) for k in priv)
+    actor_moved = not torch.equal(after["actor.layers.0.weight"].cpu(),
+                                  source["actor.layers.0.weight"])
+    ok = bool(np.isfinite(losses).all()) and losses[-1] < losses[0] and priv_same and actor_moved
+    log(f"[jump] distill: {len(losses)} Adam steps at batch 4096 in {seconds:.1f}s "
+        f"({len(losses) / seconds:.0f} steps/s); loss {losses[0]:.5f} -> {losses[-1]:.5f}; the "
+        f"{len(priv)} privileged-encoder tensors bit-equal before and after: {priv_same}; the "
+        f"actor moved: {actor_moved} {'ok' if ok else 'FAIL'} | {card}")
+    if not ok or not only_launched("jump_distill", variant, 0):
+        return None
+    del runner
+
+    # one PPO iteration of the cliff stage resumed from the distilled run
+    result = train_task("go2_parkour_cliff", variant, iterations=1,
+                        first_iteration=CLIFF_ITERATION, updates=("ppo",),
+                        extra=("--run_name", "chip_smoke_jump_resume", "--load_run",
+                               "chip_smoke_distill"), log_root=log_root)
+    if result is None:
+        return None
+    _, history, n_resume, printed = result
+    loaded = f"Loading model from: {out}" in printed
+    roa = history[0]["reg_coef"]
+    log(f"[jump] resume go2_parkour_cliff --load_run chip_smoke_distill: loaded "
+        f"{os.path.relpath(out, log_root)}: {loaded}; iteration {history[0]['iteration']}, ROA "
+        f"coefficient {roa:.4f} (resume schedule 0.1) | {card}")
+    if not loaded or abs(roa - 0.1) > 1e-6:
+        return None
+    log(f"[jump] phase 11 in {time.time() - t_phase:.1f}s")
+    return n_probe + n_collect + n_resume
 
 
 def main() -> int:
@@ -1401,7 +1672,20 @@ def main() -> int:
             f"branches of depth {plan.depth}, G = {plan.G}, decimation {spec.decimation}, "
             f"control {spec.control_type!r}, action scale {spec.action_scale}, hf_K {spec.hf_K}, "
             f"{len(spec.geom_body)} spheres; URDF {robot_envs[task].cfg.asset.file}")
+    # the receipt's K3 spec (scripts/check_fused_gpu.py: the bumpy 128 x 128
+    # table, the go2 plant, PD 40 / 1), if it names a library of its own, and
+    # the measurement kernels of the roofline (ops/csrc/peaks.cu)
+    from legged_gym_custom_tpu_torch.ops import roofline
+    from legged_gym_custom_tpu_torch.scripts import check_fused_gpu
+
+    receipt_spec = check_fused_gpu.build(8, terrain=True, full_plant=True, device=device).spec
+    receipt_label = "receipt K3"
+    receipt_own = fused_step.library_key(receipt_spec, lanes) != fused_step.library_key(
+        specs["fused_control_step_hf"], lanes)
+    log(f"[spec] {receipt_label}: hf_K {receipt_spec.hf_K}, hf_hs {receipt_spec.hf_hs}; names a "
+        f"library of its own (not go2_parkour's): {receipt_own}")
     t0 = time.time()
+    peaks_build = roofline.PeaksBuild()
     builds = {name: fused_step.KernelBuild(spec) for name, spec in specs.items()}
     robot_builds = {robot_names[task]: fused_step.KernelBuild(spec)
                     for task, spec in robot_specs.items()}
@@ -1409,9 +1693,14 @@ def main() -> int:
                     **{label: fused_step.KernelBuild(spec) for label, spec in tree_specs.items()}}
     if pit_own:
         other_builds[pit_label] = fused_step.KernelBuild(pit_spec)
+    if receipt_own:
+        other_builds[receipt_label] = fused_step.KernelBuild(receipt_spec)
     kernels = {name: b.finish() for name, b in builds.items()}
     other_kernels = {label: b.finish() for label, b in other_builds.items()}
     robot_kernels = {name: b.finish() for name, b in robot_builds.items()}
+    peaks_build.finish()
+    log(f"[build] {PEAKS_SOURCE}: nvcc {peaks_build.build_seconds:.2f}s (started with the "
+        f"others); ptxas: {peaks_build.ptxas.replace(chr(10), ' | ')}")
     log(f"[build] {len(builds) + len(other_builds) + len(robot_builds)} kernels in "
         f"{time.time() - t0:.2f}s wall ({len(builds)} of the main paths at 4096 envs, "
         f"{len(robot_builds)} of the other robots' paths, {len(other_builds)} of MPPI's 65536 "
@@ -1519,7 +1808,15 @@ def main() -> int:
     labels = {"fused_control_step": "K1", "fused_control_step_hf": "K3",
               "fused_control_step_stiction": "K2: 'P', implicit stiction, plane",
               "fused_control_step_T_hf": "K2: 'T', implicit stiction, heightfield"}
-    timings = {name: time_kernel(f"{name} ({labels[name]})", specs[name], args[name], outs[name])
+    result = measured_peaks_phase(smi)
+    if result is None:
+        return 1
+    _, peaks, peak_launches, _ = result
+    peak_rows = measurement_kernel_rows(peak_launches, smi)
+    if peak_rows is None:
+        return 1
+    timings = {name: time_kernel(f"{name} ({labels[name]})", specs[name], args[name], outs[name],
+                                 peaks=peaks)
                for name in specs}
 
     k1 = specs["fused_control_step"]
@@ -1548,19 +1845,22 @@ def main() -> int:
             b = kernel_bound(k1, batch, outs)
             ms = float(np.mean(times["one"]))
             log(f"[timing] fused_control_step (K1) at MPPI's B*K={B} rollouts, one lane per leg "
-                f"(G = 4): {ms:.4f} ms (mean of the two medians); {b['bytes']} bytes, {b['ops']} "
-                f"fp32 ops of the kernel's algorithm ({b['ops'] // B} an env) -> bound "
+                f"(G = 4): {ms:.4f} ms (mean of the two medians); {b['bytes']} bytes, "
+                f"{b['flops']} flops and {b['transcendentals']} transcendentals of the kernel's "
+                f"algorithm ({b['flops'] // B} and {b['transcendentals'] // B} an env) -> bound "
                 f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bytes_ms']:.5f} ms bytes, "
                 f"{b['ops_ms']:.5f} ms ops); {ms / b['bound_ms']:.1f}x the bound | {smi}")
+    if receipt_check(smi) < 0:
+        return 1
 
     if stop_after == "timing":
         log("[stop] after timing")
         return 0
 
-    # ---- 5. closed loop: K1, K3 and the stiction kernel beside their plain versions
-    for name, env in (("fused_control_step", None), ("fused_control_step_hf", parkour),
-                      ("fused_control_step_stiction", None)):
-        if not closed_loop_ks(name, specs[name], device, env):
+    # ---- 5. closed loop: K1 and the stiction kernel beside their plain versions
+    # (K3's is the receipt's rollout in phase 4)
+    for name in ("fused_control_step", "fused_control_step_stiction"):
+        if not closed_loop_ks(name, specs[name], device):
             log(f"[closed loop] FAIL: {name}'s rollout leaves the plain version's distribution")
             return 1
     del envs, parkour, args, outs
@@ -1583,7 +1883,8 @@ def main() -> int:
                                os.path.basename(trained[task].log_dir), smi)
             if more is None:
                 return 1
-            launches[name] += more
+            launches[name] += more[0]
+            cliff_run = more[1]
     result = stiction_path(device, variants["fused_control_step_stiction"], smoke_root)
     if result is None:
         return 1
@@ -1632,10 +1933,16 @@ def main() -> int:
 
     # ---- 10. the other robots: ANYmal's SEA network through one-tick 'T'
     # launches, Cassie and G1 through the biped builds
-    result = other_robots_phase(device, smi, robot_envs, robot_specs, robot_names)
+    result = other_robots_phase(device, smi, robot_envs, robot_specs, robot_names, peaks)
     if result is None:
         return 1
     robot_timings, robot_errs, robot_launches = result
+
+    # ---- 11. the jump-teacher pipeline through K3 on the cliff checkpoint
+    n = jump_phase(variants["fused_control_step_hf"], parkour_root, cliff_run, smi)
+    if n is None:
+        return 1
+    launches["fused_control_step_hf"] += n
 
     replaces = {"fused_control_step": f"{REFERENCE}:824",
                 "fused_control_step_hf": f"{REFERENCE}:352",
@@ -1644,7 +1951,8 @@ def main() -> int:
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCE, replaces=replaces[name],
              launches=launches[name], max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
-             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
+             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+             measured_bound_ms=t["measured_bound_ms"])
         for name, t in timings.items()]}
     robot_replaces = {"fused_control_step_T": f"{REFERENCE}:690",
                       "fused_control_step_T_hf": f"{REFERENCE}:690",
@@ -1655,8 +1963,9 @@ def main() -> int:
              replaces=robot_replaces[fused_step.variant_name(robot_specs[task])],
              launches=robot_launches[task], max_abs_err=robot_errs[task], ms=t["ms"],
              plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-             library_ms=None)
+             library_ms=None, measured_bound_ms=t["measured_bound_ms"])
         for task, t in robot_timings.items()]
+    line["kernels"] += peak_rows
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

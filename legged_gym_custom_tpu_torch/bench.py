@@ -8,9 +8,13 @@ root bench.py's lines 1-3b (that file imports JAX and stays as it is).
 3. MPPI solves/s at the throughput point B 4096 / K 16 / H 10, and at the
    single-robot point B 8 / K 16 / H 10 the p99 wall latency and the device
    time per solve against the 50 Hz budget (mpc/bench.py);
-3b. the closed loop: one synchronized solve per tick, device p99 per solve.
-The weak-scaling, multiprocess and roofline lines of bench.py need modules
-the port does not have yet and are not emitted.  A failed line fails the
+3b. the closed loop: one synchronized solve per tick, device p99 per solve;
+3c. `fused_kernel_roofline_pct`: the K3 kernel (terrain, full plant) at
+   4096 envs against its speed of light from the peaks measured on this card
+   (scripts/check_fused_gpu.py::roofline_bench, ops/roofline.py); null on
+   the CPU, which has no kernel to time.
+The weak-scaling and multiprocess lines of bench.py need modules the port
+does not have yet and are not emitted.  A failed line fails the
 run.  Every line names the card (`nvidia-smi` name and power limit); the last
 line repeats the first with every metric's value under "all".
 
@@ -131,6 +135,17 @@ def main(argv=None):
     cl["vs_baseline"] = ratio(cl["value"], BUDGET_MS, invert=True)
     cl["baseline_note"] = "budget 20 ms (50 Hz); wall includes the host's launches"
     emit(cl)
+
+    rl = None
+    if device.type == "cuda":
+        from legged_gym_custom_tpu_torch.scripts.check_fused_gpu import roofline_bench
+
+        rl = roofline_bench(batch=4096, terrain=True, full_plant=True, device=device)
+    emit({"metric": "fused_kernel_roofline_pct", "value": rl and rl["roofline_pct"],
+          "unit": "% of measured speed-of-light (max of the fp32-FMA / tanhf compute "
+                  "and the device-memory bounds) achieved by the terrain full-plant "
+                  "kernel (K3) at B=4096",
+          "vs_baseline": None, "detail": rl})
 
     headline = dict(emitted[0])
     headline["all"] = {m["metric"]: m["value"] for m in emitted}

@@ -831,36 +831,28 @@ def _nvcc() -> str:
 _KERNELS: dict = {}   # (FusedSpec, lanes per branch) -> FusedKernel, built once each
 
 
-class KernelBuild:
-    """An nvcc build of the kernel for one spec, started in the background
-    on construction so that several builds can run together; `finish`
-    waits for it and loads the library.  A library already in BUILD_DIR
-    for the same source, spec header and flags is reused.  `lanes_per_branch`
-    defaults to the wrapper's layout, `lanes_per_branch_for(spec)`."""
+class NvccBuild:
+    """An nvcc build of `source` (with `NVCC_FLAGS` and `extra` flags) into
+    the shared library `lib_path`, started in the background on construction
+    so that several builds can run together.  A library already at
+    `lib_path` is reused: the caller names it by a hash of what it is built
+    from."""
 
-    def __init__(self, spec: FusedSpec, lanes_per_branch: int = None):
-        check_covered(spec)
-        self.spec = spec
-        if lanes_per_branch is None:
-            lanes_per_branch = lanes_per_branch_for(spec)
-        self.key = (spec, lanes_per_branch)
-        key = library_key(spec, lanes_per_branch)
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        self.lib_path = os.path.join(BUILD_DIR, f"fused_step_{key}.so")
-        self.log_path = self.lib_path[:-3] + ".ptxas.txt"
+    def __init__(self, lib_path: str, source: str, extra=()):
+        self.lib_path = lib_path
+        self.log_path = lib_path[:-3] + ".ptxas.txt"
         self.proc = None
         self.t0 = time.time()
-        if os.path.exists(self.lib_path):
+        if os.path.exists(lib_path):
             return
-        hdr_path = os.path.join(BUILD_DIR, f"fused_step_{key}.h")
-        with open(hdr_path, "w") as f:
-            f.write(spec_header(spec, lanes_per_branch))
-        self.tmp = f"{self.lib_path}.{os.getpid()}.tmp"
-        self.cmd = [_nvcc(), *NVCC_FLAGS, "-include", hdr_path, "-o", self.tmp, KERNEL_SOURCE]
+        self.tmp = f"{lib_path}.{os.getpid()}.tmp"
+        self.cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", self.tmp, source]
         self.proc = subprocess.Popen(self.cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                      text=True)
 
-    def finish(self) -> FusedKernel:
+    def wait(self):
+        """Wait for nvcc; returns (the ptxas report, build seconds: 0.0 when
+        the library was there), or raises with nvcc's output."""
         build_seconds = 0.0
         if self.proc is not None:
             out, err = self.proc.communicate()
@@ -876,7 +868,34 @@ class KernelBuild:
             with open(self.log_path) as f:
                 ptxas = "\n".join(l.strip() for l in f
                                   if "ptxas" in l or "registers" in l or "spill" in l)
-        lib = ctypes.CDLL(self.lib_path)
+        return ptxas, build_seconds
+
+
+class KernelBuild:
+    """An nvcc build of the kernel for one spec, started in the background
+    on construction so that several builds can run together; `finish`
+    waits for it and loads the library.  A library already in BUILD_DIR
+    for the same source, spec header and flags is reused.  `lanes_per_branch`
+    defaults to the wrapper's layout, `lanes_per_branch_for(spec)`."""
+
+    def __init__(self, spec: FusedSpec, lanes_per_branch: int = None):
+        check_covered(spec)
+        self.spec = spec
+        if lanes_per_branch is None:
+            lanes_per_branch = lanes_per_branch_for(spec)
+        self.key = (spec, lanes_per_branch)
+        key = library_key(spec, lanes_per_branch)
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        lib_path = os.path.join(BUILD_DIR, f"fused_step_{key}.so")
+        hdr_path = os.path.join(BUILD_DIR, f"fused_step_{key}.h")
+        if not os.path.exists(lib_path):
+            with open(hdr_path, "w") as f:
+                f.write(spec_header(spec, lanes_per_branch))
+        self.build = NvccBuild(lib_path, KERNEL_SOURCE, ("-include", hdr_path))
+
+    def finish(self) -> FusedKernel:
+        ptxas, build_seconds = self.build.wait()
+        lib = ctypes.CDLL(self.build.lib_path)
         # 12 inputs, the K3 window and its offsets (null for K1), 8 outputs
         lib.lgc_fused_control_step.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int,
                                                                          ctypes.c_void_p]

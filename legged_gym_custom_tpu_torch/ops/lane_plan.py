@@ -18,7 +18,7 @@ axes, the masses, most joint offsets' zeros) stays a compile-time constant of
 that slot, so its zeros and ones still fold; one that differs by lane (the
 legs mirror each other) goes into a lane table `[row][lane]` that the kernel
 keeps in shared memory.  `LanePlan.const` is the one accessor of both, used
-by the tests' plain version that walks the plan (tests/torch_plan_step.py),
+by the plain version that walks the plan (ops/plan_step.py),
 and `header_lines` emits exactly the arrays it reads.
 """
 from __future__ import annotations

@@ -16,16 +16,17 @@ What every lane of a group would compute alike is computed once here: a sum
 of the butterfly is formed once and shared by the lanes that hold it, and the
 base's 6x6 system is solved once.  Walked with one lane per branch, the step
 therefore does the arithmetic the kernel's algorithm needs for one env and no
-more, which is what `chip_smoke.py` counts for the kernel's bound.
+more, which is what `ops/roofline.py::count_kernel_ops` counts for the
+kernel's bound and its roofline.
 """
 from __future__ import annotations
 
 import torch
 
-from legged_gym_custom_tpu_torch.ops.fused_step import (_add, _body_inertias_components, _crf, _crm, _cross, _dot, _hat,
+from .fused_step import (_add, _body_inertias_components, _crf, _crm, _cross, _dot, _hat,
                          _inertia_mul, _inv_xform_force, _mm, _mtv, _mul, _mv, _quat_to_matrix,
                          _solve66, _sub, _tile_surface, _vadd, _xform_motion, check_covered)
-from legged_gym_custom_tpu_torch.ops.lane_plan import SYM6, LanePlan
+from .lane_plan import SYM6, LanePlan
 
 
 def _consts(plan: LanePlan, name, item, lane, n):

@@ -1,14 +1,17 @@
 """Profiling / tracing utilities, torch port of
 legged_gym_custom_tpu/utils/profiling.py: a torch.profiler trace around a
-block, per-section wall-clock timing synchronized with the card, and the
-card's memory statistics."""
+block, per-section wall-clock timing synchronized with the card, CUDA-event
+timing of a call on the card, and the card's memory statistics."""
 from __future__ import annotations
 
 import contextlib
 import time
 from typing import Dict
 
+import numpy as np
 import torch
+
+SM_CLOCK_HZ = 1.98e9   # H100 SXM boost clock: sizes the spin that lets the host run ahead
 
 
 @contextlib.contextmanager
@@ -23,6 +26,28 @@ def trace(log_dir: str):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+
+
+def cuda_time_ms(fn, reps: int, warmup: int = 3, ahead_ms: float = 0.0) -> float:
+    """Median of `reps` CUDA-event timings of `fn()`, after `warmup` calls.
+    A kernel that takes less than its Python wrapper takes to enqueue it would
+    be timed at the host's pace; `ahead_ms` first keeps the card spinning that
+    long, so that every launch and its two events are already queued when the
+    card reaches them and each pair of events brackets device time only."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    if ahead_ms:
+        torch.cuda._sleep(int(ahead_ms * 1e-3 * SM_CLOCK_HZ))
+    events = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([start.elapsed_time(end) for start, end in events]))
 
 
 class SectionTimer:

@@ -401,3 +401,77 @@ def test_actuated_step_on_card_runs_the_one_tick_kernel(task, tmp_path_factory):
                       (*st_e, info_e.link_forces, info_e.torques), tol)
     for a, b in zip(act_k, act_e):
         _assert_close_p99(("dof_vel",), (a,), (b,), tol)
+
+
+# ---------------------------------------------------------------- the roofline
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the measurement kernels measure the card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fma_chain", "tanh_chain", "stream_add"])
+def test_measurement_kernel_returns_its_closed_form(name, card):
+    """Each kernel of ops/csrc/peaks.cu on the card, launched once and
+    counted at the shapes the peaks are measured at, against the closed
+    form of its chain, which depends on the number of steps run."""
+    from legged_gym_custom_tpu_torch.ops import roofline
+
+    n = roofline.CHAIN_ELEMENTS
+    roofline.reset_launch_counts()
+    if name == "fma_chain":   # c <- c * 1 + 0.5 on halves: exact in float32
+        iters = roofline.FMA_ITERS
+        x = torch.arange(n, device=card, dtype=torch.float32) * 0.5 - 4096.0
+        got = roofline.fma_chain(x, 1.0, 0.5, iters)
+        assert torch.equal(got, x + 0.5 * iters * roofline.FMA_INNER)
+    elif name == "tanh_chain":   # c <- tanh(c) from (0, 1]: ~sqrt(3 / (2 steps))
+        iters = roofline.TANH_ITERS
+        x = torch.arange(1, n + 1, device=card, dtype=torch.float32) / n
+        got = roofline.tanh_chain(x, 0.0, iters)
+        ref = x.double()
+        for _ in range(iters * roofline.TANH_INNER):
+            ref = torch.tanh(ref)
+        assert float((got.double() - ref).abs().max()) <= 1e-6
+        assert float((got - roofline.plain_tanh_chain(x, 0.0, iters)).abs().max()) <= 1e-6
+    else:
+        x = (torch.arange(n, device=card) % 1000).float() * 0.25
+        assert torch.equal(roofline.stream_add(x), x + 1.0)
+    torch.cuda.synchronize()
+    assert roofline.launch_counts()[name] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fma_gflops", "trans_gops", "hbm_gbps"])
+def test_measured_peak_lies_within_the_data_sheet(name, card):
+    """A measured rate between 20 % and 105 % of the published one (above
+    it, the measurement is at fault)."""
+    from legged_gym_custom_tpu_torch.ops import roofline
+
+    measure = {"fma_gflops": roofline.measure_fma_peak_gflops,
+               "trans_gops": roofline.measure_trans_rate_gops,
+               "hbm_gbps": roofline.measure_hbm_bw_gbps}[name]
+    share = measure(device=card) / roofline.DATASHEET_PEAKS[name]
+    assert 0.20 <= share <= 1.05, share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terrain", [True, False])
+def test_fused_kernel_receipt_passes_its_ks_gate(terrain, card, tmp_path):
+    """`check_fused_gpu [--terrain] --full_plant --rollout 10 --batch 1024`:
+    the kernel (K3, or K1 on the plane) against its plain version one step
+    and ten closed-loop steps."""
+    from legged_gym_custom_tpu_torch.scripts import check_fused_gpu
+
+    fused_step.reset_launch_counts()
+    out = check_fused_gpu.main(["--terrain"] * terrain + [
+        "--full_plant", "--rollout", "10", "--batch", "1024", "--iters", "5", "--out",
+        str(tmp_path / "r.json")])
+    assert out["rollout_pass"] and max(out["rollout_ks"].values()) < 0.05
+    variant = "fused_control_step_hf" if terrain else "fused_control_step"
+    counts = fused_step.launch_counts()
+    assert counts[variant] == 1 + 6 + 10 and sum(counts.values()) == counts[variant]
+    assert out["kernel_ms"] > 0.0 and out["speedup"] > 1.0
+    assert out["parity_outlier_env_frac"]["dof_pos"] <= 0.01

@@ -1,5 +1,5 @@
 """The fused control step's lane plan (ops/lane_plan.py) and the plain version
-that walks it (tests/torch_plan_step.py), on the CPU.
+that walks it (ops/plan_step.py), on the CPU.
 
 The plan is the port's own host code and has no counterpart in the JAX
 package: it says which lane of a warp runs which part of the kinematic tree
@@ -20,8 +20,8 @@ import torch
 from legged_gym_custom_tpu_torch import SYNTHETIC_GO2_URDF
 from legged_gym_custom_tpu_torch.envs import task_registry
 from legged_gym_custom_tpu_torch.ops import fused_step, lane_plan
+from legged_gym_custom_tpu_torch.ops import plan_step
 from test_torch_physics import GO2_DEFAULT, TINY_URDF
-import torch_plan_step as plan_step
 import torch_tree_model as tree_model
 
 CHAIN_URDF = """<robot name="chain">

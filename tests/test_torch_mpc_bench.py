@@ -28,7 +28,7 @@ CLOSED_LOOP_KEYS = {"metric", "ticks", "unit", "wall_p50_ms", "wall_p99_ms", "tu
                     "device_within_50hz_budget", "host_overhead_p50_ms"}
 METRICS = ["go2_train_total_fps", "go2_parkour_train_total_fps", "go2_mpc_solves_per_s",
            "go2_mpc_single_robot_p99_ms", "go2_mpc_single_robot_device_solve_ms",
-           "go2_mpc_closed_loop_device_p99_ms"]
+           "go2_mpc_closed_loop_device_p99_ms", "fused_kernel_roofline_pct"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -156,6 +156,7 @@ def test_bench_entry_emits_well_formed_lines_without_jax():
     assert set(lines[-1]["all"]) == set(METRICS)
     # the device metrics of a CPU run are not measured
     assert lines[4]["value"] is None and lines[5]["value"] is None
+    assert lines[6]["value"] is None and lines[6]["detail"] is None
     assert lines[0]["value"] > 0.0 and lines[2]["value"] > 0.0
 
 

@@ -85,9 +85,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 def test_port_modules_load_without_jax():
     """Importing the port's env (the other robots' too), terrain, patch,
-    kernel, deploy, play, MPC, bench, profiling, recurrent-policy and
-    actuator-network modules pulls in neither JAX nor the JAX package,
-    transitively (a fresh interpreter)."""
+    kernel, deploy, play, MPC, bench, profiling, recurrent-policy,
+    actuator-network, jump-pipeline, curve and roofline modules pulls in
+    neither JAX nor the JAX package, transitively (a fresh interpreter)."""
     code = ("import sys\n"
             "import legged_gym_custom_tpu_torch.envs, legged_gym_custom_tpu_torch.terrain\n"
             "import legged_gym_custom_tpu_torch.physics.patch, legged_gym_custom_tpu_torch.ops.fused_step\n"
@@ -108,6 +108,12 @@ def test_port_modules_load_without_jax():
             "import legged_gym_custom_tpu_torch.models.recurrent\n"
             "import legged_gym_custom_tpu_torch.models.actuator_net\n"
             "import legged_gym_custom_tpu_torch.rl.traj_utils\n"
+            "import legged_gym_custom_tpu_torch.scripts.jump_teacher\n"
+            "import legged_gym_custom_tpu_torch.scripts.jump_distill\n"
+            "import legged_gym_custom_tpu_torch.scripts.extract_curve\n"
+            "import legged_gym_custom_tpu_torch.scripts.package_parkour\n"
+            "import legged_gym_custom_tpu_torch.scripts.check_fused_gpu\n"
+            "import legged_gym_custom_tpu_torch.ops.roofline\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
                          cwd=os.path.dirname(PORT_DIR), check=True)
