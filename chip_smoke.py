@@ -160,6 +160,18 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                dataset with teacher steps, finite and falling distill losses,
                the privileged encoder bit-equal before and after distill (the
                reference's fault), the resume at ROA coefficient 0.1.
+ 12. distributed - data-parallel training (`scripts.multihost_worker --task go2
+               --num_envs 4096 --iterations 2 --warmup 1 --ckpt_dir`): one
+               process over nccl on cuda:0 (a world of 1), then two gloo
+               ranks sharing cuda:0 with 2048 envs each (the backend rule:
+               ranks that share a card take gloo); each rank launches K1
+               exactly 1 + 24 x 3 times and no other kernel (counted in the
+               worker, gathered into its result line), finite losses, the
+               collective checkpoint restores iteration 3, and the flat
+               parameters of the ranks are bit-equal.  It prints the global
+               env-steps/s beside phase 6's go2 figure and the update's
+               collective bytes and count per iteration.  A failed rank
+               fails the phase; the launcher kills every rank.
 Then it prints the kernels' JSON line, the card's line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -234,6 +246,11 @@ PEAKS_REFERENCE = "legged_gym_custom_tpu/ops/roofline.py"
 CLIFF_ITERATION = TRAIN_ITERATIONS + len(LADDER)
 JUMP_FORCED = '{"trigger_d": 100.0, "trigger_min_vx": -100.0}'
 JUMP_WIDTHS = "0.20,0.25,0.30"
+# phase 12: the worker's runs (ranks, expected backend), its iterations, and
+# each run's time limit
+DIST_RUNS = ((1, "nccl"), (2, "gloo"))
+DIST_ITERATIONS, DIST_WARMUP = 2, 1
+DIST_TIMEOUT = 240.0
 SOURCE = "legged_gym_custom_tpu_torch/ops/csrc/fused_step.cu"
 REFERENCE = "legged_gym_custom_tpu/ops/fused_step.py"
 # Per-output tolerances (atol, rtol) of tests/test_fused_step.py:126-135 (K1)
@@ -1584,6 +1601,66 @@ def jump_phase(variant: str, log_root: str, cliff_run: str, card: str):
     return n_probe + n_collect + n_resume
 
 
+def distributed_phase(card: str, go2_history) -> int:
+    """Phase 12: the worker on one process over nccl, then on two gloo ranks
+    sharing cuda:0, go2 at 4096 global envs.  Returns the K1 launches of all
+    ranks of both runs, or -1 on a failed gate."""
+    from legged_gym_custom_tpu_torch.scripts import multihost_worker
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()   # the ranks allocate on the same card
+    expected = 1 + STEPS_PER_ITERATION * (DIST_ITERATIONS + DIST_WARMUP)
+    single = [h["env_steps_per_s"] for h in go2_history if h["update"] == "ppo"]
+    total, fps = 0, {}
+    for world, backend in DIST_RUNS:
+        ckpt_dir = os.path.join(HERE, "logs", "chip_smoke_multihost", f"world{world}")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        os.makedirs(ckpt_dir)
+        t0 = time.time()
+        try:
+            r, outputs = multihost_worker.launch(world, [
+                "--task", "go2", "--num_envs", str(NUM_ENVS), "--iterations", str(DIST_ITERATIONS),
+                "--warmup", str(DIST_WARMUP), "--ckpt_dir", ckpt_dir, "--device", "cuda:0"],
+                timeout=DIST_TIMEOUT)
+        except RuntimeError as e:
+            log(f"[distributed] FAIL: {world} rank(s): {e}")
+            return -1
+        wall = time.time() - t0
+        for line in outputs[0].splitlines():
+            if "Computation:" in line or "Learning iteration" in line:
+                log(f"[distributed] world {world} rank 0: {line.strip()}")
+        per_it = {phase: {"bytes": c["total_bytes"] / DIST_ITERATIONS,
+                          "counts": {k: n / DIST_ITERATIONS for k, n in c["counts"].items()}}
+                  for phase, c in r["collectives"].items()}
+        fps[world] = r["fps"]
+        log(f"[distributed] world {world} over {r['backend']} on {r['device']}: {r['fps']:.1f} "
+            f"global env-steps/s over {DIST_ITERATIONS} PPO iterations of {NUM_ENVS} envs x "
+            f"{STEPS_PER_ITERATION} steps (phase 6's single-process go2: "
+            f"{', '.join(f'{v:.1f}' for v in single)}); collection {r['collection_s']}s, "
+            f"learning {r['learning_s']}s (last iteration); collectives an iteration "
+            f"{json.dumps(per_it)}; run {wall:.1f}s | {card}")
+        for rk in r["ranks"]:
+            log(f"[distributed] world {world} rank {rk['rank']}: {rk['local_envs']} envs from "
+                f"{rk['env_offset']}, launches {json.dumps(rk['launches'])}, parameters sha256 "
+                f"{rk['params_sha256'][:16]}, losses finite {rk['losses_finite']}")
+        ok = (r["backend"] == backend and r["device"] == "cuda:0"
+              and r["process_count"] == world == len(r["ranks"])
+              and all(rk["launches"] == {"fused_control_step": expected} for rk in r["ranks"])
+              and all(rk["losses_finite"] for rk in r["ranks"]) and np.isfinite(r["value_loss"])
+              and r["restored_iteration"] == DIST_ITERATIONS + DIST_WARMUP
+              and r["params_bit_equal"])
+        if not ok:
+            log(f"[distributed] FAIL: world {world}: expected backend {backend}, K1 exactly "
+                f"{expected} times a rank and nothing else, finite losses, iteration "
+                f"{DIST_ITERATIONS + DIST_WARMUP} restored, parameters bit-equal; got "
+                f"{json.dumps(r)}")
+            return -1
+        total += sum(rk["launches"]["fused_control_step"] for rk in r["ranks"])
+    log(f"[distributed] world 2 / world 1 global env-steps/s: {fps[2] / fps[1]:.3f} | {card}")
+    log(f"[distributed] phase 12 in {time.time() - t_phase:.1f}s")
+    return total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser("chip_smoke")
     parser.add_argument("--stop-after", choices=("build", "check", "timing"), default=None)
@@ -1866,7 +1943,7 @@ def main() -> int:
     del envs, parkour, args, outs
 
     # ---- 6. the main paths: counters 0 just before each, read just after
-    trained, launches = {}, {}
+    trained, histories, launches = {}, {}, {}
     smoke_root = os.path.join(LEGGED_GYM_TORCH_ROOT_DIR, "logs", "chip_smoke_go2_stiction")
     parkour_root = os.path.join(LEGGED_GYM_TORCH_ROOT_DIR, "logs", "chip_smoke_go2_parkour")
     for root in (smoke_root, parkour_root):   # resume, play and the ladder load runs from here
@@ -1877,7 +1954,7 @@ def main() -> int:
         result = train_task(task, variants[name], log_root=log_root)
         if result is None:
             return 1
-        trained[task], _, launches[name], _ = result
+        trained[task], histories[task], launches[name], _ = result
         if task == "go2_parkour":
             more = ladder_path(variants[name], parkour_root,
                                os.path.basename(trained[task].log_dir), smi)
@@ -1943,6 +2020,12 @@ def main() -> int:
     if n is None:
         return 1
     launches["fused_control_step_hf"] += n
+
+    # ---- 12. data-parallel training: go2 on every rank through K1
+    n = distributed_phase(smi, histories["go2"])
+    if n < 0:
+        return 1
+    launches["fused_control_step"] += n
 
     replaces = {"fused_control_step": f"{REFERENCE}:824",
                 "fused_control_step_hf": f"{REFERENCE}:352",

@@ -13,13 +13,20 @@ root bench.py's lines 1-3b (that file imports JAX and stays as it is).
    4096 envs against its speed of light from the peaks measured on this card
    (scripts/check_fused_gpu.py::roofline_bench, ops/roofline.py); null on
    the CPU, which has no kernel to time.
-The weak-scaling and multiprocess lines of bench.py need modules the port
-does not have yet and are not emitted.  A failed line fails the
-run.  Every line names the card (`nvidia-smi` name and power limit); the last
-line repeats the first with every metric's value under "all".
+4.-5. the root bench.py's three scaling lines, from gloo ranks on this
+   host's CPU (`scripts/bench_scaling.py`, `scripts/bench_multiprocess.py`):
+   `mesh_sharding_overhead_efficiency_8dev` (512 envs, 8 ranks against 1),
+   `dcn_multiprocess_scaling_efficiency_2proc` and
+   `dcn_sync_only_efficiency_2proc` (256 envs, 2 ranks pinned to a core
+   each).  Their units say so and name the core count; they are tagged with
+   the host's CPU, never with the card.
+A failed line fails the run.  Every other line names the card (`nvidia-smi`
+name and power limit); the last line repeats the first with every metric's
+value under "all".
 
-On the CPU (`--device cpu`) the sizes shrink to a smoke run and the device
-metrics are null: a CPU run measures no device.
+On the CPU (`--device cpu`) the sizes shrink to a smoke run, the device
+metrics are null (a CPU run measures no device) and the scaling lines, which
+take minutes of eager CPU training, are left out.
 
 Run: python -m legged_gym_custom_tpu_torch.bench [--device cuda]
 """
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -79,6 +87,45 @@ def bench_train(task: str, num_envs: int, steps: int, iters: int, device) -> flo
     return iters * runner.num_steps_per_env * num_envs / (time.time() - t0)
 
 
+def scaling_lines(total_envs: int = 512, ranks: int = 8, mp_envs: int = 256, iters: int = 3,
+                  mp_iters: int = 2) -> list:
+    """The root bench.py's three scaling lines (:205-266), measured on gloo
+    ranks of this host's CPU: same total batch on 1 rank and on `ranks`
+    ranks sharing the cores, then 2 ranks pinned to a core each."""
+    from legged_gym_custom_tpu_torch.scripts import bench_multiprocess, bench_scaling
+
+    cores = os.cpu_count()
+    cpu = {"name": f"cpu ({cores} cores)", "power_limit": None}
+    one = bench_scaling.run(1, total_envs, iters)
+    many = bench_scaling.run(ranks, total_envs, iters)
+    eff = many["fps"] / one["fps"]
+    mp = bench_multiprocess.run_bench(procs=2, total_envs=mp_envs, iters=mp_iters, warmup=1)
+    return [
+        {"metric": f"mesh_sharding_overhead_efficiency_{ranks}dev", "value": round(eff, 4),
+         "unit": f"fps({total_envs} envs on {ranks} gloo CPU ranks) / fps({total_envs} envs on "
+                 f"1 gloo CPU rank), the ranks sharing this host's {cores} cores: throughput "
+                 "surviving the data-parallel path; CPU ranks, not the card",
+         "vs_baseline": round(eff / 0.80, 4),
+         "baseline_note": "north-star target >=0.80 scaling efficiency; one host's CPU cores "
+                          "time-sliced by the ranks, so a lower bound",
+         "detail": {"1": one, str(ranks): many}, "device": cpu},
+        {"metric": "dcn_multiprocess_scaling_efficiency_2proc", "value": mp["efficiency"],
+         "unit": f"fps({mp_envs} envs, 2 gloo CPU ranks x 1 pinned core) / (2 x fps({mp_envs} "
+                 f"envs, 1 rank x 1 pinned core)), this host's {cores} cores; CPU ranks, not "
+                 "the card",
+         "vs_baseline": round(mp["efficiency"] / 0.80, 4),
+         "baseline_note": "north-star target >=0.80 at >=2 hosts; a strong-scaling ratio "
+                          "that keeps the single-core cache confound, see the sync-only line",
+         "detail": mp, "device": cpu},
+        {"metric": "dcn_sync_only_efficiency_2proc", "value": mp["sync_only_efficiency"],
+         "unit": f"fps(2 gloo CPU ranks) / (2 x fps(1 rank at the per-rank {mp_envs // 2}-env "
+                 f"share)), pinned cores of this host's {cores}: the collectives' and barriers' "
+                 "cost alone; CPU ranks, not the card",
+         "vs_baseline": round(mp["sync_only_efficiency"] / 0.80, 4),
+         "baseline_note": "north-star target >=0.80", "device": cpu},
+    ]
+
+
 def main(argv=None):
     from legged_gym_custom_tpu_torch.mpc.bench import BUDGET_MS, run_bench, run_closed_loop
 
@@ -90,7 +137,7 @@ def main(argv=None):
     emitted = []
 
     def emit(obj):
-        obj["device"] = card
+        obj.setdefault("device", card)
         emitted.append(obj)
         print(json.dumps(obj), flush=True)
 
@@ -146,6 +193,9 @@ def main(argv=None):
                   "and the device-memory bounds) achieved by the terrain full-plant "
                   "kernel (K3) at B=4096",
           "vs_baseline": None, "detail": rl})
+    if device.type == "cuda":
+        for line in scaling_lines():
+            emit(line)
 
     headline = dict(emitted[0])
     headline["all"] = {m["metric"]: m["value"] for m in emitted}

@@ -20,6 +20,13 @@ termination and the spawn curriculum), and stateful actuator models: a task
 whose `_build_torque_fn` returns a torque function (the ANYmal SEA LSTM)
 carries its state in `EnvState.actuator_state`, zeroed on reset, and steps
 through `physics.actuated_control_step`.
+
+Data parallel (`mesh`, parallel/mesh.py): the env is rank `mesh.rank`'s
+contiguous slice, from `env_offset`, of `num_envs_global` envs.  What the
+JAX env derives from the global batch is taken from it and sliced: the
+terrain column of each env (JAX base_env.py:463) and the plane's grid of
+origins (:466-468).  The command curriculum's mean over the resetting envs
+(:632-634) is a sum and a count over all ranks.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import torch
 from legged_gym_custom_tpu_torch import physics as phys
 from legged_gym_custom_tpu_torch import resolve_device
 from legged_gym_custom_tpu_torch.ops import fused_step
+from legged_gym_custom_tpu_torch.parallel.mesh import all_reduce_sum_
 from legged_gym_custom_tpu_torch.physics import patch as patch_lib
 from legged_gym_custom_tpu_torch.physics import spatial as sp
 from legged_gym_custom_tpu_torch.physics.engine import DomainRandParams, PhysicsState
@@ -117,15 +125,19 @@ class LeggedEnv:
     """Static env builder; `reset_all` and `step` return new states."""
 
     def __init__(self, cfg, urdf_path: str, name: str = "robot", device="cuda",
-                 terrain_seed: int = 0):
+                 terrain_seed: int = 0, mesh=None):
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
 
         dev = self.device
         f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
         self.model = phys.load_urdf(urdf_path, name)
         self.ma = phys.model_arrays(self.model, device=dev)
-        self.num_envs = cfg.env.num_envs
+        self.num_envs = cfg.env.num_envs   # this rank's envs
+        world, rank = (mesh.world_size, mesh.rank) if mesh is not None else (1, 0)
+        self.num_envs_global = self.num_envs * world
+        self.env_offset = self.num_envs * rank
         self.num_actions = cfg.env.num_actions
         self.dt = cfg.sim.dt * cfg.control.decimation
         self.max_episode_length_s = cfg.env.episode_length_s
@@ -138,14 +150,15 @@ class LeggedEnv:
         # (rows, cols, 3) course origins live on the device
         self.custom_origins = cfg.terrain.mesh_type in ("heightfield", "trimesh")
         if self.custom_origins:
-            self.terrain = Terrain(cfg.terrain, self.num_envs,
+            self.terrain = Terrain(cfg.terrain, self.num_envs_global,
                                    np.random.default_rng(terrain_seed))
             self.hf = phys.from_raw(self.terrain.height_field_raw, cfg.terrain.horizontal_scale,
                                     cfg.terrain.vertical_scale, cfg.terrain.border_size,
                                     device=dev)
             self.terrain_origins = f32(self.terrain.env_origins)
             self.terrain_types = torch.as_tensor(
-                terrain_types(self.num_envs, cfg.terrain.num_cols), device=dev)
+                terrain_types(self.num_envs_global, cfg.terrain.num_cols)[self._local],
+                device=dev)
         else:
             self.terrain = None
             self.hf = phys.plane()
@@ -475,15 +488,21 @@ class LeggedEnv:
                 max_init = self.cfg.terrain.num_rows - 1
             levels = torch.randint(0, max_init + 1, (B,), generator=gen, device=self.device)
             return levels, self.terrain_types, self.terrain_origins[levels, self.terrain_types]
-        ncols = int(np.floor(np.sqrt(B)))
-        nrows = int(np.ceil(B / ncols))
+        Bg = self.num_envs_global   # the grid of the global batch, this rank's slice
+        ncols = int(np.floor(np.sqrt(Bg)))
+        nrows = int(np.ceil(Bg / ncols))
         xx, yy = np.meshgrid(np.arange(nrows), np.arange(ncols), indexing="ij")
         spacing = self.cfg.env.env_spacing
-        origins = np.zeros((B, 3), np.float32)
-        origins[:, 0] = spacing * xx.flatten()[:B]
-        origins[:, 1] = spacing * yy.flatten()[:B]
+        origins = np.zeros((Bg, 3), np.float32)
+        origins[:, 0] = spacing * xx.flatten()[:Bg]
+        origins[:, 1] = spacing * yy.flatten()[:Bg]
         zeros = torch.zeros(B, dtype=torch.long, device=self.device)
-        return zeros, zeros, torch.as_tensor(origins, device=self.device)
+        return zeros, zeros, torch.as_tensor(origins[self._local], device=self.device)
+
+    @property
+    def _local(self) -> slice:
+        """This rank's envs among the global batch."""
+        return slice(self.env_offset, self.env_offset + self.num_envs)
 
     # ------------------------------------------------------------------
     # Random draws
@@ -626,16 +645,20 @@ class LeggedEnv:
             return cr
         idx = self.episode_sum_names.index("tracking_lin_vel")
         term_scale = next(s for n, _, s in self.reward_terms if n == "tracking_lin_vel")
-        cnt = torch.clamp(reset_mask.sum(), min=1)
-        mean_rew = torch.where(reset_mask, state.episode_sums[:, idx], 0.0).sum() / cnt \
-            / self.max_episode_length
+        rew_sum = torch.where(reset_mask, state.episode_sums[:, idx], 0.0).sum()
+        n_reset = reset_mask.sum()
+        if self.mesh is not None and self.mesh.distributed:
+            stats = torch.stack([rew_sum.double(), n_reset.double()])
+            all_reduce_sum_(self.mesh, [stats])
+            rew_sum, n_reset = stats[0].float(), stats[1].long()
+        mean_rew = rew_sum / torch.clamp(n_reset, min=1) / self.max_episode_length
         delta = cfg.vel_increment
         if cfg.max_reverse_vel < 0.0:
             lo = torch.clamp(cr[0, 0] - delta, cfg.max_reverse_vel, 0.0)
         else:
             lo = torch.clamp(cr[0, 0] - delta, min=cfg.max_reverse_vel)
         hi = torch.clamp(cr[0, 1] + delta, 0.0, cfg.max_forward_vel)
-        apply = (mean_rew > 0.8 * term_scale) & reset_mask.any()
+        apply = (mean_rew > 0.8 * term_scale) & (n_reset > 0)
         return torch.cat([torch.where(apply, torch.stack([lo, hi]), cr[0])[None], cr[1:]])
 
     # ------------------------------------------------------------------

@@ -16,6 +16,14 @@ The optimizers are `torch.optim.Adam`; the global-norm clip follows optax's
 `clip_by_global_norm` (scale by max_norm / norm only when norm >= max_norm).
 Minibatch permutations come from a `torch.Generator`, or are passed in
 (`perm`) so a test can feed both frameworks the same one.
+
+Data parallel (`mesh`, parallel/mesh.py): each rank permutes and minibatches
+only its local (T, B / n) shard; a minibatch's gradients and metrics are
+averaged over the ranks in one all-reduce after `backward()`, before the
+adaptive-KL branch reads the KL and before the clip (the JAX package's
+`pmean` under `shard_map`, ppo.py:311-316, :397-399), so every rank takes
+the same step.  GAE's advantage statistics are global (the all-reduce GSPMD
+inserts in JAX, runner.py:247-248).
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from legged_gym_custom_tpu_torch.models.networks import ActorCriticNetworks
+from legged_gym_custom_tpu_torch.parallel.mesh import DataMesh, all_reduce_mean_, all_reduce_sum_
 
 
 class PPOConfig(NamedTuple):
@@ -139,9 +148,12 @@ def gaussian_entropy(std):
 
 
 @torch.no_grad()
-def compute_gae(traj: Transition, last_values, gamma: float, lam: float):
+def compute_gae(traj: Transition, last_values, gamma: float, lam: float,
+                mesh: Optional[DataMesh] = None):
     """GAE over the (T, B) trajectory (rollout_storage.py:110-124).
-    Returns (returns, normalized advantages)."""
+    Returns (returns, normalized advantages).  With a mesh the normalization
+    takes the mean and variance of the global batch: the sum, the sum of
+    squares and the count, in float64, summed over the ranks."""
     T = traj.rewards.shape[0]
     adv = torch.zeros_like(last_values)
     v_next = last_values
@@ -153,8 +165,16 @@ def compute_gae(traj: Transition, last_values, gamma: float, lam: float):
         advantages[t] = adv
         v_next = traj.values[t]
     returns = advantages + traj.values
-    mean = advantages.mean()
-    var = torch.mean((advantages - mean) ** 2)
+    if mesh is not None and mesh.distributed:
+        a = advantages.double()
+        stats = torch.stack([a.sum(), (a * a).sum(),
+                             torch.tensor(float(a.numel()), dtype=torch.float64, device=a.device)])
+        all_reduce_sum_(mesh, [stats])
+        mean64 = stats[0] / stats[2]
+        mean, var = mean64.float(), torch.clamp(stats[1] / stats[2] - mean64 ** 2, min=0).float()
+    else:
+        mean = advantages.mean()
+        var = torch.mean((advantages - mean) ** 2)
     return returns, (advantages - mean) / (torch.sqrt(var) + 1e-8)
 
 
@@ -172,6 +192,18 @@ def clip_by_global_norm_(params, max_norm: float):
         g.mul_(scale)
 
 
+def _pmean_grads_(mesh: DataMesh, params, metrics: torch.Tensor) -> torch.Tensor:
+    """Average the .grad of `params` and the vector `metrics` over the ranks
+    in one flat all-reduce; returns the averaged metrics.  A parameter
+    without a gradient contributes zeros, so every rank's buffer has the
+    same layout."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    all_reduce_mean_(mesh, [p.grad for p in params] + [metrics])
+    return metrics
+
+
 def _permutation(batch: int, mb_size: int, nmb: int, generator, perm, device):
     if perm is None:
         perm = torch.randperm(batch, generator=generator, device=device)
@@ -179,12 +211,15 @@ def _permutation(batch: int, mb_size: int, nmb: int, generator, perm, device):
 
 
 def ppo_update(cfg: PPOConfig, ts: TrainState, traj: Transition, returns, advantages,
-               generator=None, perm: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               generator=None, perm: Optional[torch.Tensor] = None,
+               mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
     """Full PPO update: epochs x minibatches (reference ppo.py:182-293).
 
     traj leaves are (T, B, ...), flattened to (T*B, ...) and permuted once;
     the same permutation is reused across epochs (rollout_storage.py:142).
     Updates `ts` in place and returns the mean metrics as 0-d tensors.
+    With a mesh, `traj` is this rank's shard and `perm` this rank's
+    permutation of it; the metrics are means over the ranks.
     """
     nets = ts.nets
     T, B = traj.rewards.shape
@@ -238,6 +273,13 @@ def ppo_update(cfg: PPOConfig, ts: TrainState, traj: Transition, returns, advant
         ts.opt_policy.zero_grad(set_to_none=True)
         ts.opt_est.zero_grad(set_to_none=True)
         (loss + est_loss).backward()
+        if mesh is not None and mesh.distributed:
+            # the gradients and the metrics the adaptive LR reads, in one
+            # all-reduce (JAX pmeans `aux` so that every rank's LR agrees)
+            reduced = _pmean_grads_(mesh, ts.policy_params + ts.est_params, torch.stack(
+                [value_loss.detach(), surrogate_loss.detach(), reg_loss.detach(),
+                 est_loss.detach(), kl]))
+            value_loss, surrogate_loss, reg_loss, est_loss, kl = reduced.unbind()
 
         # adaptive-KL LR (ppo.py:234-246), applied to this minibatch's step;
         # the host reads the KL here, once per minibatch, only in this mode
@@ -269,8 +311,11 @@ def ppo_update(cfg: PPOConfig, ts: TrainState, traj: Transition, returns, advant
 
 
 def dagger_update(cfg: PPOConfig, ts: TrainState, traj: Transition, generator=None,
-                  perm: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """Adaptation-encoder distillation (reference ppo.py:309-349)."""
+                  perm: Optional[torch.Tensor] = None,
+                  mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
+    """Adaptation-encoder distillation (reference ppo.py:309-349).  With a
+    mesh: this rank's shard and permutation, gradients and loss averaged
+    over the ranks as in `ppo_update`."""
     nets = ts.nets
     T, B = traj.rewards.shape
     batch = T * B
@@ -290,6 +335,8 @@ def dagger_update(cfg: PPOConfig, ts: TrainState, traj: Transition, generator=No
         loss = torch.mean(torch.linalg.norm(priv_latent - adapt_latent, dim=-1))
         ts.opt_adapt.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None and mesh.distributed:
+            loss = _pmean_grads_(mesh, ts.adapt_params, loss.detach().reshape(1))[0]
         clip_by_global_norm_(ts.adapt_params, cfg.max_grad_norm)
         ts.opt_adapt.step()
         total = total + loss.detach()

@@ -11,19 +11,32 @@ Episode bookkeeping stays on the device as per-env sums; the host reads the
 iteration's scalars once.  Checkpoints hold the parameters and all three
 optimizer states (utils/checkpoint.py); `load` restores them, and
 `get_inference_policy` gives the deterministic (or sampling) policy that
-`scripts/play.py` rolls out.  Single device: the mesh and
-sharding of the JAX runner come with a later slice.
+`scripts/play.py` rolls out.
+
+Data parallel (the env's `mesh`, parallel/mesh.py; JAX runner.py:73-105,
+:255-305): the env is this rank's shard of `env.num_envs_global` envs (a
+global count that does not divide is refused by
+`parallel.multihost.local_env_count`, where it is an input); the parameters
+are broadcast from rank 0 once; each rank's generator is seeded `seed +
+rank`, so the ranks draw different actions.  The rollout issues no
+collective: after it, one all-reduce each for the advantage statistics
+(`ppo.compute_gae`) and for the episode statistics and terrain level (JAX
+:157-163, :195-210); the update all-reduces each minibatch's gradients.
+fps counts global env steps; only the primary rank prints and writes
+TensorBoard; `save` is collective.
 """
 from __future__ import annotations
 
 import os
 import time
 from collections import deque
+from contextlib import nullcontext
 from typing import Optional
 
 import torch
 
 from legged_gym_custom_tpu_torch.models.networks import ActorCriticNetworks
+from legged_gym_custom_tpu_torch.parallel.mesh import all_reduce_sum_, shard_params
 from legged_gym_custom_tpu_torch.utils import checkpoint as checkpoint_lib
 from . import ppo as ppo_lib
 from .ppo import PPOConfig, Transition
@@ -66,9 +79,12 @@ class OnPolicyRunner:
         self.policy_cfg = train_cfg.policy
         self.log_dir = log_dir
         self.writer = None
+        self.mesh = mesh = env.mesh
+        self.is_primary = mesh is None or mesh.is_primary
 
         seed = getattr(train_cfg, "seed", 1)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        rank = mesh.rank if mesh is not None else 0
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + rank)
         init_gen = torch.Generator().manual_seed(seed)
         ecfg = env.cfg.env
         self.nets = ActorCriticNetworks(
@@ -82,6 +98,7 @@ class OnPolicyRunner:
             history_buffer_length=ecfg.history_buffer_length,
             generator=init_gen,
         ).to(self.device)
+        shard_params(mesh, self.nets)
         self.ppo_cfg = PPOConfig.from_cfg(self.alg_cfg, resume=self.cfg.resume)
         self.train_state = ppo_lib.TrainState(self.nets, self.ppo_cfg)
         self.dagger_update_freq = self.alg_cfg.dagger_update_freq
@@ -136,39 +153,55 @@ class OnPolicyRunner:
         self.obs = obs
         traj = Transition(*[torch.stack(x) for x in zip(*steps)])
         last_values = nets.value(obs.critic)
-        returns, advantages = ppo_lib.compute_gae(traj, last_values, cfg.gamma, cfg.lam)
+        returns, advantages = ppo_lib.compute_gae(traj, last_values, cfg.gamma, cfg.lam,
+                                                  mesh=self.mesh)
         # episode means, weighted by the episodes that finished this iteration
-        n_resets = fin_count.sum().float()
+        ep_sum, fin_rew_sum = ep.sum(dim=0), fin_rew.sum()
+        fin_len_sum, n_resets = fin_len.sum().float(), fin_count.sum().float()
+        curriculum = env.cfg.terrain.curriculum
+        if self.mesh is not None and self.mesh.distributed:
+            # the one cross-rank reduction of the episode statistics
+            level_sum = self.env_state.terrain_levels.float().sum().reshape(1)
+            all_reduce_sum_(self.mesh, [ep_sum, fin_rew_sum, fin_len_sum, n_resets, level_sum])
+            terrain_level = level_sum[0] / env.num_envs_global
+        elif curriculum:
+            terrain_level = self.env_state.terrain_levels.float().mean()
         denom = torch.clamp(n_resets, min=1.0)
-        ep_means = ep.sum(dim=0) / denom / env.max_episode_length_s
         logs = dict(
-            episode=ep_means,
-            fin_rew_sum=fin_rew.sum(),
-            fin_len_sum=fin_len.sum().float(),
+            episode=ep_sum / denom / env.max_episode_length_s,
+            fin_rew_sum=fin_rew_sum,
+            fin_len_sum=fin_len_sum,
             fin_count=n_resets,
         )
-        if env.cfg.terrain.curriculum:
+        if curriculum:
             # curriculum telemetry from the post-rollout state (reference
             # runner.py:208-211)
-            logs["terrain_level"] = self.env_state.terrain_levels.float().mean()
+            logs["terrain_level"] = terrain_level
         return traj, returns, advantages, logs
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _phase(self, name: str):
+        """Record the collectives of the block under `name` (comm_budget)."""
+        return self.mesh.comm.in_phase(name) if self.mesh is not None else nullcontext()
+
     def run_iteration(self, adaptation_mode: bool):
         """One collection + update; returns (metrics, logs) as host floats."""
         t0 = time.time()
-        traj, returns, advantages, logs = self._collect(adaptation_mode)
+        with self._phase("collect"):
+            traj, returns, advantages, logs = self._collect(adaptation_mode)
         self._sync()
         t1 = time.time()
         self.collection_time = t1 - t0
-        if adaptation_mode:
-            metrics = ppo_lib.dagger_update(self.ppo_cfg, self.train_state, traj, self.generator)
-        else:
-            metrics = ppo_lib.ppo_update(self.ppo_cfg, self.train_state, traj, returns,
-                                         advantages, self.generator)
+        with self._phase("update"):
+            if adaptation_mode:
+                metrics = ppo_lib.dagger_update(self.ppo_cfg, self.train_state, traj,
+                                                self.generator, mesh=self.mesh)
+            else:
+                metrics = ppo_lib.ppo_update(self.ppo_cfg, self.train_state, traj, returns,
+                                             advantages, self.generator, mesh=self.mesh)
         metrics["mean_std"] = self.nets.std.detach().mean()
         self._sync()
         self.learn_time = time.time() - t1
@@ -182,7 +215,7 @@ class OnPolicyRunner:
 
     # ------------------------------------------------------------------
     def learn(self, num_learning_iterations: int, init_at_random_ep_len: bool = False):
-        if self.log_dir is not None and self.writer is None:
+        if self.log_dir is not None and self.writer is None and self.is_primary:
             os.makedirs(self.log_dir, exist_ok=True)
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -204,11 +237,12 @@ class OnPolicyRunner:
             metrics, logs = self.run_iteration(use_adaptation)
             iter_time = time.time() - start
             ep_window.push(logs["fin_rew_sum"], logs["fin_len_sum"], int(logs["fin_count"]))
-            steps = self.num_steps_per_env * self.env.num_envs
+            steps = self.num_steps_per_env * self.env.num_envs_global
             self.tot_timesteps += steps
             self.tot_time += iter_time
             fps = steps / iter_time
-            self._log(it, tot_iter, metrics, logs, fps, ep_window)
+            if self.is_primary:
+                self._log(it, tot_iter, metrics, logs, fps, ep_window)
             history.append(dict(
                 iteration=it, update="dagger" if use_adaptation else "ppo",
                 env_steps_per_s=fps, collection_s=self.collection_time,
@@ -267,9 +301,10 @@ class OnPolicyRunner:
     def save(self, path, infos=None):
         """Checkpoint the parameters, ALL THREE optimizer states and the
         iteration (the reference saves only the main optimizer,
-        on_policy_runner.py:283-288)."""
+        on_policy_runner.py:283-288).  With a mesh every rank calls it: the
+        primary writes, then all pass a barrier."""
         checkpoint_lib.save_checkpoint(path, self.train_state, self.current_learning_iteration,
-                                       infos)
+                                       infos, mesh=self.mesh)
 
     def load(self, path, load_optimizer=True):
         """Restore a checkpoint written by `save`: the parameters and, with

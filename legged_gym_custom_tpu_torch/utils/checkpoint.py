@@ -4,6 +4,11 @@ A checkpoint is one `torch.save` file holding the networks' `state_dict`,
 the `state_dict` of all three optimizers (policy, adaptation, estimator;
 the reference drops the last two, on_policy_runner.py:283-288), the
 adaptive learning rate, the update count and the iteration.
+
+With a mesh the save is collective (JAX's orbax path, :60-120): every rank
+calls it, the primary writes the file atomically (a temp file, then
+`os.replace`) and all ranks pass a barrier, after which any rank may load
+it.  The parameters are replicated, so there is nothing to shard.
 """
 from __future__ import annotations
 
@@ -11,12 +16,18 @@ import os
 
 import torch
 
+from legged_gym_custom_tpu_torch.parallel.mesh import barrier
+
 KEYS = ("model_state_dict", "optimizer_policy", "optimizer_adapt", "optimizer_est",
         "learning_rate", "total_updates", "iter", "infos")
 
 
-def save_checkpoint(path: str, ts, iteration: int, infos=None) -> None:
-    """Write `ts` (rl.ppo.TrainState) and the iteration to `path`."""
+def save_checkpoint(path: str, ts, iteration: int, infos=None, mesh=None) -> None:
+    """Write `ts` (rl.ppo.TrainState) and the iteration to `path`; with a
+    mesh (parallel/mesh.py), collectively."""
+    if mesh is not None and not mesh.is_primary:
+        barrier(mesh)
+        return
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
@@ -27,6 +38,7 @@ def save_checkpoint(path: str, ts, iteration: int, infos=None) -> None:
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+    barrier(mesh)
 
 
 def load_checkpoint(path: str, map_location="cpu") -> dict:

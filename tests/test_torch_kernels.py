@@ -475,3 +475,46 @@ def test_fused_kernel_receipt_passes_its_ks_gate(terrain, card, tmp_path):
     assert counts[variant] == 1 + 6 + 10 and sum(counts.values()) == counts[variant]
     assert out["kernel_ms"] > 0.0 and out["speedup"] > 1.0
     assert out["parity_outlier_env_frac"]["dof_pos"] <= 0.01
+
+
+# ---------------------------------------------------------------- data parallel
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_train_through_k1(card, tmp_path):
+    """Two ranks of `scripts.multihost_worker` share cuda:0 (so gloo, by the
+    backend rule) for one go2 iteration at 256 global envs: each launches K1
+    once per env step and in `reset_all`, and nothing else; the parameters
+    come out bit-equal across ranks; the checkpoint round trip restores."""
+    from legged_gym_custom_tpu_torch.scripts import multihost_worker
+
+    result, _ = multihost_worker.launch(
+        2, ["--task", "go2", "--num_envs", "256", "--iterations", "1", "--device", "cuda:0",
+            "--ckpt_dir", str(tmp_path)], timeout=600)
+    assert (result["backend"], result["device"]) == ("gloo", "cuda:0")
+    assert [r["launches"] for r in result["ranks"]] == [{"fused_control_step": 1 + 24}] * 2
+    assert [r["local_envs"] for r in result["ranks"]] == [128, 128]
+    assert result["params_bit_equal"] and result["restored_iteration"] == 1
+    assert all(r["losses_finite"] for r in result["ranks"])
+
+
+@pytest.mark.cuda
+def test_two_nccl_ranks_on_two_cards_train_through_k1(card, tmp_path):
+    """Two ranks of `scripts.multihost_worker`, one a card (so nccl, by the
+    backend rule: the all-reduces run on the device buffers, the barrier
+    names each rank's card), one go2 iteration at 256 global envs: each rank
+    launches K1 once per env step and in `reset_all`, and nothing else; the
+    parameters come out bit-equal across ranks; the checkpoint round trip
+    restores."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: nccl takes one rank a card")
+    from legged_gym_custom_tpu_torch.scripts import multihost_worker
+
+    result, _ = multihost_worker.launch(
+        2, ["--task", "go2", "--num_envs", "256", "--iterations", "1", "--device", "cuda",
+            "--ckpt_dir", str(tmp_path)], timeout=600)
+    assert (result["backend"], result["device"]) == ("nccl", "cuda:0")
+    assert [r["device"] for r in result["ranks"]] == ["cuda:0", "cuda:1"]
+    assert [r["launches"] for r in result["ranks"]] == [{"fused_control_step": 1 + 24}] * 2
+    assert [r["local_envs"] for r in result["ranks"]] == [128, 128]
+    assert result["params_bit_equal"] and result["restored_iteration"] == 1
+    assert all(r["losses_finite"] for r in result["ranks"])
