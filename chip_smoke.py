@@ -40,7 +40,16 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                K3 also on the go2_parkour_finetune composite course (raised
                platforms between gaps), a quarter of the bases within 0.3 m of
                a platform face or a gap edge, whose spec must name the same
-               library as go2_parkour's (no other nvcc build);
+               library as go2_parkour's (no other nvcc build); then the
+               opt-out (an env with `sim.fused_kernel` off, or built under
+               LGC_FUSED_KERNEL=0, calls the eager engine by name): one
+               `physics.eager_control_step` of K1's go2 batch and of K3's
+               gap-course batch on the card launches no kernel and agrees
+               with the kernel's output at the same p99 gates; the two
+               heightfield modes no kernel covers (patch_halfwidth 0,
+               terrain_tick_sample False) run there, finite, without a
+               launch, while `physics.control_step` and the wrapper refuse
+               them on the card;
   4. timing  - first the roofline path of the bench entry's line 3c
                (`check_fused_gpu.roofline_bench`, K3 at 4096 envs on the
                receipt's terrain and full plant): the fp32 FMA, tanhf and
@@ -64,7 +73,12 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                --terrain --full_plant --batch 1024 --rollout 25` (parity,
                timing, the closed-loop KS gate 0.05 over 25 steps with the
                windows cut anew every step: K3's closed loop; exactly 77
-               launches);
+               launches; its eager side); each build's `eager_ms`, the
+               eager engine's step on the build's inputs (one timed call
+               after one warm-up, CUDA events: at about 10^4 times the
+               kernel its precision does not matter); then one go2 PPO
+               iteration at 4096 envs with `sim.fused_kernel` off, no
+               launch, its env-steps/s printed;
   5. closed loop - 25 control steps of K1 and the stiction kernel, each
                beside its plain version from one seeded batch of 1024 envs
                under one action sequence: Kolmogorov-Smirnov distance of
@@ -170,9 +184,21 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                collective checkpoint restores iteration 3, and the flat
                parameters of the ranks are bit-equal.  It prints the global
                env-steps/s beside phase 6's go2 figure and the update's
-               collective bytes and count per iteration.  A failed rank
-               fails the phase; the launcher kills every rank.
-Then it prints the kernels' JSON line, the card's line and, last,
+               collective bytes and count per iteration.  Then `scripts.train`
+               itself as 2 gloo ranks sharing cuda:0, started by
+               `multihost.launch_module` with torch's variables, at 4096
+               global envs: go2 for 2 iterations, `--resume` for 1 more, and
+               go2_parkour_finetune (K3, `runner.resume` in its config) for 1
+               from a copy of phase 6's go2_parkour run; each run: one new run
+               directory written by rank 0 alone (its checkpoints, one event
+               file), the resumed iteration counter, the checkpoint the
+               primary named, each rank's K1 / K3 launches exactly 1 + 24 x
+               iterations and nothing else, finite losses, parameters
+               bit-equal across ranks; the global env-steps/s printed beside
+               phase 6's.  A failed rank fails the phase; the launcher kills
+               every rank.
+Then it prints the kernels' JSON line (each control-step build with its `eager_ms`),
+the card's line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -251,6 +277,13 @@ JUMP_WIDTHS = "0.20,0.25,0.30"
 DIST_RUNS = ((1, "nccl"), (2, "gloo"))
 DIST_ITERATIONS, DIST_WARMUP = 2, 1
 DIST_TIMEOUT = 240.0
+# phase 12: scripts/train.py as 2 gloo ranks on cuda:0, its experiments (the
+# parkour stage resumes phase 6's go2_parkour run, copied there)
+TRAIN_RANKS = 2
+TRAIN_RANKS_GO2, TRAIN_RANKS_PARKOUR = "chip_smoke_train_ranks", "chip_smoke_train_ranks_parkour"
+# phases 4 and 10: the eager engine's step timed once after one warm-up (at
+# about 10^4 times the kernel's time its precision does not matter)
+EAGER_REPS = 1
 SOURCE = "legged_gym_custom_tpu_torch/ops/csrc/fused_step.cu"
 REFERENCE = "legged_gym_custom_tpu/ops/fused_step.py"
 # Per-output tolerances (atol, rtol) of tests/test_fused_step.py:126-135 (K1)
@@ -527,6 +560,83 @@ def kernel_bound(spec, args, outs, peaks=None) -> dict:
         out.update(measured_bytes_ms=m[0], measured_ops_ms=m[1], measured_bound_ms=m[2],
                    measured_bound_by=m[3])
     return out
+
+
+def time_eager(label, env, args, one_tick: bool = False, reps: int = EAGER_REPS) -> float:
+    """CUDA-event median of `reps` control steps of the eager engine on the
+    card (`physics.eager_control_step`, what an env with the kernel off
+    steps) on a build's inputs (state, actions, dr; a heightfield's windows
+    are cut from the env's table), the counterpart of JAX's `xla_ms`.
+    `one_tick`: the one-tick 'T' step of a stateful actuator's build
+    (decimation 1, direct torques at scale 1)."""
+    from legged_gym_custom_tpu_torch import physics as phys
+
+    state, actions, dr = args[:3]
+    params, pd = env.sim_params, env.pd
+    if one_tick:
+        params = params._replace(decimation=1)
+        pd = pd._replace(control_type="T", action_scale=1.0)
+    step = (env.ma, env.hf, params, pd, phys.DomainRandParams(*dr), env.dof_limits,
+            phys.PhysicsState(*state), actions)
+    ms = cuda_time_ms(lambda: phys.eager_control_step(*step), reps=reps, warmup=1)
+    log(f"[eager] {label} B={actions.shape[-1]}: the eager engine's step "
+        f"{ms:.2f} ms (median of {reps} after one warm-up)")
+    return ms
+
+
+def opt_out_check(envs, args, outs, card) -> bool:
+    """Phase 3's opt-out gate.  An env with the kernel off (`sim.fused_kernel`,
+    or LGC_FUSED_KERNEL=0 when built) steps `physics.eager_control_step` by
+    name: one step of it on K1's go2 batch and on K3's gap-course batch
+    launches no kernel and agrees with the kernel's output on the same inputs
+    at phase 3's p99 tolerances; the two heightfield modes no kernel covers
+    (no window, per-substep sampling) run in it, finite and without a launch,
+    while `physics.control_step` and the wrapper refuse them on the card."""
+    from legged_gym_custom_tpu_torch import physics as phys
+    from legged_gym_custom_tpu_torch.ops import fused_step
+
+    ok = True
+    for name, label, tol in (("fused_control_step", "K1", TOLERANCES),
+                             ("fused_control_step_hf", "K3", HF_TOLERANCES)):
+        env = envs[name]
+        state, actions, dr = args[name][:3]
+        step = (env.ma, env.hf, env.sim_params, env.pd, phys.DomainRandParams(*dr),
+                env.dof_limits, phys.PhysicsState(*state), actions)
+        fused_step.reset_launch_counts()
+        st, info = phys.eager_control_step(*step)
+        modes = {} if env.hf.is_plane else {
+            mode: env.sim_params._replace(**{mode: value})
+            for mode, value in (("patch_halfwidth", 0.0), ("terrain_tick_sample", False))}
+        outs_m = {mode: phys.eager_control_step(*step[:2], params, *step[3:])[0]
+                  for mode, params in modes.items()}
+        torch.cuda.synchronize()
+        ok &= only_launched(f"opt-out control step ({label}'s batch)", name, 0)
+        ok &= check_kernel(f"opt-out eager vs {label}", NAMES, tol,
+                           (tuple(st), info.link_forces, info.torques), outs[name])[0]
+        for mode, st_m in outs_m.items():
+            finite = all(bool(torch.isfinite(x).all()) for x in st_m)
+            params = modes[mode]
+            spec = fused_step.build_spec(env.ma, params, env.pd, env.dof_limits,
+                                         hf_K=phys.patch_K(env.hf, params),
+                                         hf_hs=env.hf.horizontal_scale)
+            calls = {"physics.control_step": lambda: phys.control_step(*step[:2], params,
+                                                                       *step[3:])}
+            if spec.hf_K:   # with no window the spec is the plane's, which the kernel covers
+                calls["fused_control_step"] = lambda: fused_step.fused_control_step(
+                    spec, state, actions, dr)
+            refused = []
+            for what, call in calls.items():
+                try:
+                    call()
+                except NotImplementedError:
+                    refused.append(what)
+            torch.cuda.synchronize()
+            want = list(calls)
+            log(f"[opt-out] {label}'s batch with {mode} off the kernel's variants: eager finite "
+                f"{finite}; refused on the card by {refused} | {card}")
+            ok &= finite and refused == want
+        ok &= only_launched(f"opt-out uncovered modes ({label}'s batch)", name, 0)
+    return ok
 
 
 def only_launched(what: str, variant: str, expected: int) -> bool:
@@ -1268,6 +1378,8 @@ def other_robots_phase(device, card, envs, specs, names, peaks):
         ok &= ok_k and contact > 10.0
         timings[task] = time_kernel(names[task], spec, args, out, plain_reps=OTHER_PLAIN_REPS,
                                     peaks=peaks)
+        timings[task]["eager_ms"] = time_eager(names[task], env, args,
+                                               one_tick=env._torque_fn is not None)
     if not ok:
         log("[check] FAIL: an other robot's build disagrees with its plain version")
         return None
@@ -1661,6 +1773,122 @@ def distributed_phase(card: str, go2_history) -> int:
     return total
 
 
+def train_ranks_run(label, argv, variant, iterations, first_iteration, log_root, loads, card):
+    """One `scripts.train` run as TRAIN_RANKS gloo ranks sharing cuda:0,
+    started by `multihost.launch_module` with torch's variables.  Gates: the
+    primary's `[train] ranks:` report (each rank launched `variant` exactly
+    once per env step and in `reset_all`, and nothing else; finite losses;
+    parameters bit-equal), the iteration reached, exactly one new run
+    directory in `log_root`, holding the primary's checkpoints and one event
+    file, and, with `loads`, the checkpoint the primary named for every rank.
+    Returns (report, global env-steps/s by iteration, the ranks' launches of
+    `variant` summed from the report) or None on a failed gate."""
+    from legged_gym_custom_tpu_torch.envs import task_registry
+    from legged_gym_custom_tpu_torch.parallel import multihost
+    from legged_gym_custom_tpu_torch.scripts import train as train_script
+
+    before = set(os.listdir(log_root)) if os.path.isdir(log_root) else set()
+    t0 = time.time()
+    try:
+        outputs = multihost.launch_module(
+            train_script.MODULE, TRAIN_RANKS, [*argv, "--device", "cuda:0"],
+            timeout=DIST_TIMEOUT, torch_env=True)
+    except RuntimeError as e:
+        log(f"[train ranks] FAIL: {label}: {e}")
+        return None
+    wall = time.time() - t0
+    lines = [l for l in outputs[0].splitlines() if l.startswith("[train] ranks: ")]
+    report = json.loads(lines[-1][len("[train] ranks: "):]) if lines else {}
+    new = sorted(set(os.listdir(log_root)) - before) if os.path.isdir(log_root) else []
+    files = os.listdir(os.path.join(log_root, new[0])) if len(new) == 1 else []
+    ckpts = sorted(f for f in files if f.startswith("model_"))
+    events = [f for f in files if "tfevents" in f]
+    expected = 1 + STEPS_PER_ITERATION * iterations
+    last = first_iteration + iterations
+    interval = task_registry.get_cfgs(argv[argv.index("--task") + 1])[1].runner.save_interval
+    saved = sorted({f"model_{it}.pt" for it in range(first_iteration, last) if it % interval == 0}
+                   | {f"model_{last}.pt"})
+    fps = [float(l.split("Computation:")[1].split()[0]) for l in outputs[0].splitlines()
+           if "Computation:" in l]
+    loaded = loads is None or f"Loading model from: {loads}" in outputs[0]
+    for rk in report.get("ranks", []):
+        log(f"[train ranks] {label} rank {rk['rank']} on {rk['device']}: {rk['local_envs']} envs from "
+            f"{rk['env_offset']}, launches {json.dumps(rk['launches'])}, losses finite "
+            f"{rk['losses_finite']}, parameters sha256 {rk['params_sha256'][:16]}")
+    log(f"[train ranks] {label}: {report.get('world_size')} ranks over {report.get('backend')} "
+        f"on cuda:0, global env-steps/s by iteration {fps}; new run directories {new}, "
+        f"checkpoints {ckpts}, event files {len(events)}; loaded {loads}: {loaded}; "
+        f"run {wall:.1f}s | {card}")
+    ok = (report.get("world_size") == TRAIN_RANKS and report.get("backend") == "gloo"
+          and report.get("iteration") == last and report.get("params_bit_equal")
+          and all(rk["launches"] == {variant: expected} and rk["losses_finite"]
+                  and rk["device"] == "cuda:0"
+                  for rk in report["ranks"])
+          and len(new) == 1 and report.get("log_dir") == os.path.join(log_root, new[0])
+          and ckpts == saved
+          and len(events) == 1 and loaded and len(fps) == iterations
+          and "Learning iteration" not in outputs[1])
+    if not ok:
+        log(f"[train ranks] FAIL: {label}: expected {TRAIN_RANKS} gloo ranks at iteration "
+            f"{last}, {variant} exactly {expected} times a rank and nothing else, finite losses, "
+            f"bit-equal parameters, one new run directory written by rank 0 alone (checkpoints "
+            f"{saved}, one event file), console block on rank 0 only; "
+            f"report {json.dumps(report)}")
+        return None
+    return report, fps, sum(rk["launches"].get(variant, 0) for rk in report["ranks"])
+
+
+def train_ranks_phase(card: str, go2_history, parkour_root: str, parkour_run: str):
+    """Phase 12 (b): `scripts.train` on 2 gloo ranks sharing cuda:0 at 4096
+    global envs: go2 for 2 iterations, `--resume` for 1 more, then
+    go2_parkour_finetune (K3; its config sets `runner.resume`) for 1 from a
+    copy of phase 6's go2_parkour run.  Returns the launches of all ranks by
+    variant, or None on a failed gate."""
+    t_phase = time.time()
+    torch.cuda.empty_cache()   # the ranks allocate on the same card
+    roots = {name: os.path.join(HERE, "logs", name)
+             for name in (TRAIN_RANKS_GO2, TRAIN_RANKS_PARKOUR)}
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    # the stage resumes the newest run of its experiment: phase 6's go2_parkour run
+    shutil.copytree(os.path.join(parkour_root, parkour_run),
+                    os.path.join(roots[TRAIN_RANKS_PARKOUR], parkour_run))
+    common = ["--num_envs", str(NUM_ENVS), "--run_name", "chip_smoke"]
+    go2 = ["--task", "go2", *common, "--experiment_name", TRAIN_RANKS_GO2]
+    launches = {"fused_control_step": 0, "fused_control_step_hf": 0}
+    result = train_ranks_run("go2", [*go2, "--max_iterations", "2"], "fused_control_step", 2, 0,
+                             roots[TRAIN_RANKS_GO2], None, card)
+    if result is None:
+        return None
+    fps = {"go2": result[1]}
+    launches["fused_control_step"] += result[2]
+    first = os.path.basename(result[0]["log_dir"])
+    result = train_ranks_run("go2 --resume", [*go2, "--resume", "--max_iterations", "1"],
+                             "fused_control_step", 1, 2, roots[TRAIN_RANKS_GO2],
+                             os.path.join(roots[TRAIN_RANKS_GO2], first, "model_2.pt"), card)
+    if result is None:
+        return None
+    fps["go2 --resume"] = result[1]
+    launches["fused_control_step"] += result[2]
+    stage_ckpt = os.path.join(roots[TRAIN_RANKS_PARKOUR], parkour_run,
+                              f"model_{TRAIN_ITERATIONS}.pt")
+    result = train_ranks_run("go2_parkour_finetune",
+                             ["--task", "go2_parkour_finetune", *common, "--experiment_name",
+                              TRAIN_RANKS_PARKOUR, "--max_iterations", "1"],
+                             "fused_control_step_hf", 1, TRAIN_ITERATIONS,
+                             roots[TRAIN_RANKS_PARKOUR], stage_ckpt, card)
+    if result is None:
+        return None
+    launches["fused_control_step_hf"] += result[2]
+    fps["go2_parkour_finetune"] = result[1]
+    single = [round(h["env_steps_per_s"], 1) for h in go2_history if h["update"] == "ppo"]
+    log(f"[train ranks] scripts.train on {TRAIN_RANKS} gloo ranks of cuda:0, global env-steps/s "
+        f"by iteration {json.dumps(fps)}; phase 6's single-process go2 PPO iterations {single} "
+        f"| {card}")
+    log(f"[train ranks] phase 12 (b) in {time.time() - t_phase:.1f}s")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser("chip_smoke")
     parser.add_argument("--stop-after", choices=("build", "check", "timing"), default=None)
@@ -1876,6 +2104,12 @@ def main() -> int:
         log("[check] FAIL: a kernel disagrees with its plain version (or too few bases at "
             "gap edges, or a stage's spec names another build)")
         return 1
+    # the opt-out: the eager engine on the card, no launch
+    if not opt_out_check(envs, args, outs, smi):
+        log("[opt-out] FAIL: the eager engine launched a kernel, disagrees with the kernel, or "
+            "an uncovered mode was not refused on the card; "
+            "disagrees with the kernel")
+        return 1
 
     if stop_after == "check":
         log("[stop] after check")
@@ -1895,6 +2129,10 @@ def main() -> int:
     timings = {name: time_kernel(f"{name} ({labels[name]})", specs[name], args[name], outs[name],
                                  peaks=peaks)
                for name in specs}
+    for name, t in timings.items():
+        t["eager_ms"] = time_eager(f"{name} ({labels[name]})", envs[name], args[name])
+        log(f"[eager] {name}: kernel {t['ms']:.4f} ms, {t['eager_ms'] / t['ms']:.1f}x faster than "
+            f"the eager engine | {smi}")
 
     k1 = specs["fused_control_step"]
     for B in (1024, 16384):    # information only: the card unfilled, and filled
@@ -1929,6 +2167,20 @@ def main() -> int:
                 f"{b['ops_ms']:.5f} ms ops); {ms / b['bound_ms']:.1f}x the bound | {smi}")
     if receipt_check(smi) < 0:
         return 1
+    # one go2 PPO iteration with the kernel off: the eager engine, no launch
+    eager_cfg = task_registry.get_cfgs("go2")[0]
+    eager_cfg.sim.fused_kernel = False
+    result = train_task("go2", "fused_control_step", iterations=1, updates=("dagger",),
+                        log_root=None, env_cfg=eager_cfg, ticks=0)
+    if result is None or "the fused kernel is off" not in result[3]:
+        log("[opt-out] FAIL: a go2 iteration with sim.fused_kernel off launched a kernel, or "
+            "its env did not say so")
+        return 1
+    h = result[1][0]
+    log(f"[opt-out] go2 iteration at {NUM_ENVS} envs on the eager engine "
+        f"(sim.fused_kernel False, no launch): {h['env_steps_per_s']:.0f} env-steps/s (collection "
+        f"{h['collection_s']:.3f}s, learning {h['learning_s']:.3f}s) | {smi}")
+    del result
 
     if stop_after == "timing":
         log("[stop] after timing")
@@ -1985,6 +2237,7 @@ def main() -> int:
         f"terrain_levels moved for {moved} of {NUM_ENVS} envs")
 
     go2_run = os.path.basename(trained["go2"].log_dir)   # phase 9's control_and_play loads it
+    parkour_run = os.path.basename(trained["go2_parkour"].log_dir)   # phase 12 resumes it
 
     # ---- 7. where a training env step's time goes (after the main paths' counts)
     for task, runner in trained.items():
@@ -2021,11 +2274,17 @@ def main() -> int:
         return 1
     launches["fused_control_step_hf"] += n
 
-    # ---- 12. data-parallel training: go2 on every rank through K1
+    # ---- 12. data-parallel training: go2 on every rank through K1, then
+    # scripts/train.py on ranks through K1 and K3
     n = distributed_phase(smi, histories["go2"])
     if n < 0:
         return 1
     launches["fused_control_step"] += n
+    result = train_ranks_phase(smi, histories["go2"], parkour_root, parkour_run)
+    if result is None:
+        return 1
+    for name, n in result.items():
+        launches[name] += n
 
     replaces = {"fused_control_step": f"{REFERENCE}:824",
                 "fused_control_step_hf": f"{REFERENCE}:352",
@@ -2035,7 +2294,7 @@ def main() -> int:
         dict(name=name, route="cuda", source=SOURCE, replaces=replaces[name],
              launches=launches[name], max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
              bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
-             measured_bound_ms=t["measured_bound_ms"])
+             measured_bound_ms=t["measured_bound_ms"], eager_ms=t["eager_ms"])
         for name, t in timings.items()]}
     robot_replaces = {"fused_control_step_T": f"{REFERENCE}:690",
                       "fused_control_step_T_hf": f"{REFERENCE}:690",
@@ -2046,9 +2305,10 @@ def main() -> int:
              replaces=robot_replaces[fused_step.variant_name(robot_specs[task])],
              launches=robot_launches[task], max_abs_err=robot_errs[task], ms=t["ms"],
              plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-             library_ms=None, measured_bound_ms=t["measured_bound_ms"])
+             library_ms=None, measured_bound_ms=t["measured_bound_ms"], eager_ms=t["eager_ms"])
         for task, t in robot_timings.items()]
-    line["kernels"] += peak_rows
+    # the measurement kernels compute no control step: no eager engine to time
+    line["kernels"] += [dict(row, eager_ms=None) for row in peak_rows]
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,6 @@
 """Base task + train configs (copy of legged_gym_custom_tpu/envs/base_config.py).
 
 Default values replicate the reference; engine-specific additions are marked.
-The TPU mesh block (`parallel`) is not carried over.
 Configs are nested classes instantiated recursively (utils/config.py).
 """
 from legged_gym_custom_tpu_torch.utils.config import BaseConfig
@@ -194,6 +193,17 @@ class LeggedRobotCfg(BaseConfig):
         joint_damping = 0.0
         joint_armature = 0.0
         joint_frictionloss = 0.0
+        # --- port addition: step on the card through the fused kernel (True),
+        # or the eager engine (False: the heightfield modes the kernel does
+        # not cover, a yardstick).  LGC_FUSED_KERNEL=0 / off / false turns it
+        # off for every env built while it is set; the env prints the choice.
+        fused_kernel = True
+
+    class parallel:
+        """Data-parallel layout (JAX base_config.py:197-200): the env batch is
+        split over one rank per card; `scripts/train.py` reads it."""
+        data_axis = "data"         # env batch sharded over this mesh axis
+        mesh_shape = None          # None -> all local cards; an int -> that many
 
 
 class LeggedRobotCfgPPO(BaseConfig):

@@ -228,13 +228,23 @@ class LeggedEnv:
                 dof_meff=phys.effective_joint_inertia(
                     self.ma, default_dof_pos.astype(np.float32),
                     armature=self.sim_params.dof_armature))
+        # the engine on the card, chosen once here: the fused kernel, or, where
+        # the config turns it off (sim.fused_kernel, LGC_FUSED_KERNEL=0 when
+        # built), the eager engine called by name, with no spec
+        configured = bool(getattr(cfg.sim, "fused_kernel", True))
+        self.fused_kernel = configured and fused_step.kernel_enabled()
         # the fused kernel's compile-time constants, built once host-side: K1
         # on the plane, K3 (with the contact window's size) on a heightfield,
         # each with the K2 options ('T' control, implicit stiction) the config asks for
         self.fused_spec = fused_step.build_spec(
             self.ma, self.sim_params, self.pd, self.dof_limits,
             hf_K=phys.patch_K(self.hf, self.sim_params),
-            hf_hs=0.0 if self.hf.is_plane else self.hf.horizontal_scale)
+            hf_hs=0.0 if self.hf.is_plane else self.hf.horizontal_scale,
+        ) if self.fused_kernel else None
+        if not self.fused_kernel:
+            print(f"[env] {name}: the fused kernel is off (sim.fused_kernel={configured}, "
+                  f"LGC_FUSED_KERNEL={fused_step.env_flag()}): the eager engine steps "
+                  f"{self.num_envs} envs on {self.device}", flush=True)
 
         # ---- link groups (name-substring matching, legged_robot.py:846-894) ----
         self.feet_ids = m.link_ids_matching(cfg.asset.foot_name)
@@ -356,13 +366,21 @@ class LeggedEnv:
                 DomainRandParams(*[to_cb(x) for x in dr]), self.dof_limits,
                 PhysicsState(*[to_cb(x) for x in physics]), to_cb(actions))
         if self._torque_fn is None:
-            st, info = phys.control_step(*args, spec=self.fused_spec)
+            st, info = (phys.control_step(*args, spec=self.fused_spec) if self.fused_kernel
+                        else phys.eager_control_step(*args))
         else:
-            st, info, actuator_state = phys.actuated_control_step(
-                *args, _tree_map(to_cb, actuator_state), self._torque_fn, spec=self.fused_spec)
+            act = _tree_map(to_cb, actuator_state)
+            st, info, actuator_state = (
+                phys.actuated_control_step(*args, act, self._torque_fn, spec=self.fused_spec)
+                if self.fused_kernel
+                else phys.eager_actuated_control_step(*args, act, self._torque_fn))
             actuator_state = _tree_map(from_cb, actuator_state)
         return (PhysicsState(*[from_cb(x) for x in st]), type(info)(*[from_cb(x) for x in info]),
                 actuator_state)
+
+    @property
+    def num_proprio(self) -> int:
+        return self.cfg.env.num_proprio
 
     # ------------------------------------------------------------------
     # Stateful actuator hooks (the ANYmal SEA network overrides these)

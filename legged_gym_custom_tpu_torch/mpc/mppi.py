@@ -149,12 +149,14 @@ class MPPI:
         # The kernel's spec for this solver's own terrain, built once: K1 on
         # the plane, K3 with the contact window's size on a heightfield.  The
         # env's `fused_spec` is for the env's terrain, which a caller may
-        # have swapped (an MPPI over a course on a flat env's statics).
+        # have swapped (an MPPI over a course on a flat env's statics).  None
+        # where the env has the kernel off: the rollouts call the eager engine.
         self.hf = env.hf
         self.spec = fused_step.build_spec(
             env.ma, env.sim_params, env.pd, env.dof_limits,
             hf_K=phys.patch_K(self.hf, env.sim_params),
-            hf_hs=0.0 if self.hf.is_plane else self.hf.horizontal_scale)
+            hf_hs=0.0 if self.hf.is_plane else self.hf.horizontal_scale,
+        ) if env.fused_kernel else None
 
     def init_state(self, batch: int) -> MPCState:
         return MPCState(
@@ -185,8 +187,9 @@ class MPPI:
         costs = []
         for t in range(cfg.horizon):
             actions = samples_soa[t]
-            ph, info = phys.control_step(env.ma, self.hf, env.sim_params, env.pd, dr,
-                                         env.dof_limits, ph, actions, spec=self.spec)
+            step = (env.ma, self.hf, env.sim_params, env.pd, dr, env.dof_limits, ph, actions)
+            ph, info = (phys.control_step(*step, spec=self.spec) if self.spec is not None
+                        else phys.eager_control_step(*step))
             costs.append(stage_cost(cfg, self.statics, self.hf, ph, info, commands, actions,
                                     prev_a, phases_seq[t]))
             prev_a = actions

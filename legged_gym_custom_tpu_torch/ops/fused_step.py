@@ -34,8 +34,17 @@ plain C interface, loaded with ctypes and cached per spec.
 `fused_control_step` is the wrapper: for CPU tensors it runs
 `control_step_components`, the plain version, and for CUDA tensors it
 launches the kernel or raises.  A configuration the kernel does not cover
-('V' control, which needs the previous step's joint velocities) raises
-NotImplementedError naming the missing variant on either device.
+('V' control, which needs the previous step's joint velocities; per-substep
+terrain sampling) raises NotImplementedError naming the missing variant on
+either device.
+
+`LGC_FUSED_KERNEL` set to `0`, `off` or `false`, in any case, reads as the
+kernel turned off (`kernel_enabled`, JAX `_env_flag`); anything else (`auto`
+by default) leaves it on.  An env reads it once, when it is built: there it
+turns the config's `sim.fused_kernel` off, and that env (and an MPPI solver
+over it) then calls the eager engine by name.  This wrapper and
+`physics.control_step` never read it: on CUDA tensors they launch the kernel
+or raise.
 """
 from __future__ import annotations
 
@@ -60,6 +69,18 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+def env_flag() -> str:
+    """The `LGC_FUSED_KERNEL` setting, lower case, `auto` when unset (JAX
+    ops/fused_step.py:859-860)."""
+    return os.environ.get("LGC_FUSED_KERNEL", "auto").lower()
+
+
+def kernel_enabled() -> bool:
+    """False where `LGC_FUSED_KERNEL` is 0 / off / false (JAX
+    ops/fused_step.py:910-912)."""
+    return env_flag() not in ("0", "off", "false")
 
 
 # --------------------------------------------------------------------------
@@ -110,6 +131,10 @@ class FusedSpec(NamedTuple):
     hf_hs: float = 0.0
     control_type: str = "P"
     fl_dqd: tuple = ()
+    # the port's own: False (per-substep terrain sampling) is a heightfield
+    # mode no variant covers, which `check_covered` refuses; JAX's spec has
+    # no such field and its wrapper falls back to XLA instead
+    terrain_tick_sample: bool = True
 
 
 def _np(x):
@@ -132,11 +157,6 @@ def build_spec(ma, params, pd, dof_limits, hf_K: int = 0, hf_hs: float = 0.0) ->
     size in meters."""
     c = params.contact
     ndof = len(ma.parent) - 1
-    if hf_K and not params.terrain_tick_sample:
-        raise NotImplementedError(
-            "terrain_tick_sample=False: the heightfield kernel (K3) samples the surface once "
-            "per decimation tick and has no per-substep variant"
-        )
 
     def per_dof(x):
         return _t(x) if x is not None else (0.0,) * ndof
@@ -154,6 +174,7 @@ def build_spec(ma, params, pd, dof_limits, hf_K: int = 0, hf_hs: float = 0.0) ->
     return FusedSpec(
         hf_K=int(hf_K),
         hf_hs=float(hf_hs),
+        terrain_tick_sample=bool(params.terrain_tick_sample),
         parent=tuple(int(p) for p in ma.parent),
         joint_rot=_t(ma.joint_rot),
         joint_pos=_t(ma.joint_pos),
@@ -207,14 +228,19 @@ def tick_spec(spec: FusedSpec) -> FusedSpec:
 
 def check_covered(spec: FusedSpec):
     """Raise NotImplementedError for a spec outside the kernel's variants:
-    the plane or a heightfield, 'P' or 'T' control, tanh or implicit
-    frictionloss.  'V' control has no variant."""
+    the plane or a heightfield sampled once per tick, 'P' or 'T' control,
+    tanh or implicit frictionloss.  'V' control and per-substep terrain
+    sampling have no variant."""
     where = " on a heightfield" if spec.hf_K else ""
     if spec.control_type not in ("P", "T"):
         raise NotImplementedError(
             f"control_type {spec.control_type!r}{where}: the fused kernel covers 'P' and 'T' "
             "('V' needs the previous step's joint velocities, which it does not carry)"
         )
+    if spec.hf_K and not spec.terrain_tick_sample:
+        raise NotImplementedError(
+            "terrain_tick_sample=False: the heightfield kernel samples the surface once per "
+            "decimation tick and has no per-substep variant")
     ndof = len(spec.parent) - 1
     if spec.fl_dqd and len(spec.fl_dqd) != ndof:
         raise ValueError(f"fl_dqd needs {ndof} entries, got {len(spec.fl_dqd)}")

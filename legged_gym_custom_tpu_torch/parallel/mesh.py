@@ -185,6 +185,17 @@ def broadcast_(mesh: Optional[DataMesh], tensors, src: int = 0) -> list:
                             lambda buf: dist.broadcast(buf, src, group=mesh.group))
 
 
+def broadcast_object(mesh: Optional[DataMesh], obj, src: int = 0):
+    """Rank `src`'s `obj` (picklable) on every rank, in one broadcast: a
+    seed, a run directory, a checkpoint path that one rank picks for all."""
+    if mesh is None or not mesh.distributed:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src, group=mesh.group)
+    mesh.comm.record("broadcast-object", 0)
+    return box[0]
+
+
 def shard_params(mesh: Optional[DataMesh], module: torch.nn.Module) -> torch.nn.Module:
     """Replicate rank 0's parameters and buffers (JAX `device_put` on a
     replicated sharding), in place."""

@@ -5,6 +5,8 @@ Every process runs the same program: `init_distributed()` joins the process
 group, `global_mesh()` gives this rank's `DataMesh`, and each rank builds
 and owns `B_global / world_size` envs.  Parameters are replicated; the PPO
 gradient reductions are the all-reduces of `parallel/mesh.py`.
+`launch_module` starts the ranks of such a program on one machine
+(`scripts/train.py` over every local card, `scripts/multihost_worker.py`).
 
 The backend follows one rule, agreed on by every rank before the group is
 made: `nccl` when every rank has a card of its own; `gloo` on the CPU and
@@ -19,14 +21,16 @@ import datetime
 import os
 import shutil
 import socket
+import subprocess
+import sys
 import tempfile
 import time
 
 import torch
 import torch.distributed as dist
 
-from legged_gym_custom_tpu_torch import resolve_device
-from .mesh import DataMesh, make_mesh
+from legged_gym_custom_tpu_torch import LEGGED_GYM_TORCH_ROOT_DIR, resolve_device
+from .mesh import DataMesh, barrier, make_mesh
 
 DEFAULT_TIMEOUT_S = 300.0
 
@@ -129,12 +133,12 @@ def _exit_code(p):
     return p.poll() if hasattr(p, "poll") else p.exitcode
 
 
-def wait_ranks(procs, timeout: float) -> None:
+def wait_ranks(procs, timeout: float | None) -> None:
     """Wait for every rank's process (`multiprocessing.Process` or
     `subprocess.Popen`); raise RuntimeError as soon as one exits non-zero, or
-    when some still run `timeout` seconds on.  The caller ends the others
-    with `stop_ranks`."""
-    deadline = time.time() + timeout
+    when some still run `timeout` seconds on (None: no limit).  The caller
+    ends the others with `stop_ranks`."""
+    deadline = float("inf") if timeout is None else time.time() + timeout
     while True:
         codes = [_exit_code(p) for p in procs]
         if any(c not in (None, 0) for c in codes):
@@ -176,4 +180,81 @@ def spawn_ranks(fn, world_size: int, args=(), device="cpu", timeout: float = DEF
         return [torch.load(o, weights_only=False) for o in outs]
     finally:
         stop_ranks(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def load_kernel_rank0_first(env, mesh) -> None:
+    """Rank 0 builds (or loads) the kernel library of the env's control step
+    for its batch; the others load it after a barrier, so ranks that share a
+    build directory run one nvcc.  Nothing to load for an env with the
+    kernel off (`env.fused_spec` is None)."""
+    from legged_gym_custom_tpu_torch.ops import fused_step
+
+    if env.fused_spec is None:
+        return
+    spec = env.fused_spec if env._torque_fn is None else fused_step.tick_spec(env.fused_spec)
+    if mesh.is_primary:
+        fused_step.load_kernel(spec, env.num_envs)
+    barrier(mesh)
+    if not mesh.is_primary:
+        fused_step.load_kernel(spec, env.num_envs)
+
+
+def launch_module(module: str, num_processes: int, argv, timeout: float | None = 900.0,
+                  env=None, torch_env: bool = False, capture: bool = True,
+                  pin_cores: bool = False):
+    """Run `python -m module *argv` as `num_processes` ranks on this machine
+    (rank 0's store on a free localhost port) and wait for all.  The ranks
+    find each other through torch's variables (MASTER_ADDR, MASTER_PORT,
+    WORLD_SIZE, RANK, LOCAL_RANK) with `torch_env`, else through the
+    arguments `--coordinator --num_processes --process_id`.  With `capture`
+    each rank's output goes to a file and the list of outputs is returned;
+    without, the ranks write to this process's stdout and stderr.  A rank
+    that fails, or a run past `timeout` seconds (None: no limit), kills
+    every rank and raises RuntimeError with the ranks' output.  `pin_cores`
+    pins rank i to core i (taskset)."""
+    tmp = tempfile.mkdtemp(prefix="lgc_ranks_")
+    port = free_port()
+    procs, logs = [], []
+    base_env = dict(os.environ if env is None else env)
+    try:
+        for rank in range(num_processes):
+            cmd = ["taskset", "-c", str(rank % (os.cpu_count() or 1))] if pin_cores else []
+            cmd += [sys.executable, "-m", module, *argv]
+            rank_env = dict(base_env)
+            if torch_env:
+                rank_env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                                WORLD_SIZE=str(num_processes), RANK=str(rank),
+                                LOCAL_RANK=str(rank))
+            else:
+                cmd += ["--coordinator", f"127.0.0.1:{port}", "--num_processes",
+                        str(num_processes), "--process_id", str(rank)]
+            out = None
+            if capture:
+                logs.append(open(os.path.join(tmp, f"rank{rank}.log"), "w+"))
+                out = logs[-1]
+            procs.append(subprocess.Popen(cmd, stdout=out,
+                                          stderr=subprocess.STDOUT if capture else None,
+                                          text=True, env=rank_env,
+                                          cwd=LEGGED_GYM_TORCH_ROOT_DIR))
+        failed = None
+        try:
+            wait_ranks(procs, timeout)
+        except RuntimeError as e:
+            failed = e
+        stop_ranks(procs)
+        outputs = []
+        for f in logs:
+            f.flush()
+            f.seek(0)
+            outputs.append(f.read())
+        if failed is not None:
+            tails = "\n".join(f"--- rank {r} (exit {p.poll()}):\n{out[-3000:]}"
+                              for r, (p, out) in enumerate(zip(procs, outputs)))
+            raise RuntimeError(f"{num_processes} ranks of {module} failed ({failed}):\n{tails}")
+        return outputs
+    finally:
+        stop_ranks(procs)
+        for f in logs:
+            f.close()
         shutil.rmtree(tmp, ignore_errors=True)

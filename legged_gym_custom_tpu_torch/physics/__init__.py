@@ -18,6 +18,7 @@ from .engine import (
     StepInfo,
     actuated_control_step,
     control_step,
+    eager_actuated_control_step,
     eager_control_step,
     effective_joint_inertia,
     link_states,

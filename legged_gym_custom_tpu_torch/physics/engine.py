@@ -17,7 +17,11 @@ plane variant on the flat plane, the heightfield variant with the per-env
 windows as input on a heightfield.  It raises NotImplementedError for a
 configuration the kernel does not cover and never falls back to the eager
 path on the card.  On CPU tensors it runs `eager_control_step`, the plain
-PyTorch version of the same function.
+PyTorch version of the same function.  An env whose config turns the kernel
+off (`sim.fused_kernel = False`, or `LGC_FUSED_KERNEL=0` when it is built)
+calls `eager_control_step` / `eager_actuated_control_step` by name instead,
+on either device: that is how the heightfield modes the kernel does not
+cover run on the card.
 """
 from __future__ import annotations
 
@@ -261,18 +265,30 @@ def eager_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: 
     return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions)[:2]
 
 
+def eager_actuated_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams,
+                                pd: PDParams, dr: DomainRandParams, dof_limits: tuple,
+                                state: PhysicsState, actions, actuator_state, torque_fn):
+    """A stateful actuator's control step in plain PyTorch ops, as the
+    reference's XLA path with `torque_fn` (engine.py:301-380).
+    Returns (state', StepInfo, actuator_state')."""
+    return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions, torque_fn,
+                       actuator_state)
+
+
 def _check_kernel_terrain(hf: Heightfield, params: SimParams):
     """Raise for a heightfield the kernel's variants do not cover."""
     if hf.is_plane:
         return
+    opt_out = ("; an env with sim.fused_kernel = False (or built under LGC_FUSED_KERNEL=0) "
+               "runs it on the card through the eager engine")
     if patch_K(hf, params) == 0:
         raise NotImplementedError(
             "heightfield terrain with no per-env patch (patch_halfwidth=0): the "
-            "heightfield kernel reads its window, there is no global-table kernel")
+            "heightfield kernel reads its window, there is no global-table kernel" + opt_out)
     if not params.terrain_tick_sample:
         raise NotImplementedError(
             "terrain_tick_sample=False: the heightfield kernel samples the surface "
-            "once per decimation tick and has no per-substep variant")
+            "once per decimation tick and has no per-substep variant" + opt_out)
 
 
 def control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,

@@ -15,7 +15,9 @@ Run on the card (it checks the kernel, so it refuses the CPU):
         [--rollout 25] [--roofline] [--out receipt.json]
 
 Prints one JSON line with the parity deltas and the env-steps/s of both
-paths, with the card's `nvidia-smi` name and power limit.  `--rollout N`
+paths, and of the eager engine (`physics.eager_control_step`, what an env
+with the kernel off steps, the counterpart of the reference's `xla_ms`), with the
+card's `nvidia-smi` name and power limit.  `--rollout N`
 adds the closed-loop distributional gate (KS statistic of trajectory
 statistics, plain version against kernel, gate 0.05); `--roofline` prints
 the kernel-only speed-of-light accounting of ops/roofline.py instead.
@@ -41,6 +43,7 @@ DEFAULT_ANGLES = np.array(
 )
 KS_GATE = 0.05
 PLAIN_REPS = 3   # timed calls of the plain version (about 2 s each at 4096 envs)
+EAGER_REPS = 5   # timed calls of the eager engine
 PARITY_GATES = {"dof_pos": 0.01, "dof_vel": 1.0}
 
 
@@ -141,6 +144,14 @@ def kernel_step(p: Plant, state, actions):
     tensors: the windows cut, one launch)."""
     st, info = phys.control_step(p.ma, p.hf, p.params, p.pd, p.dr, p.dof_limits, state,
                                  actions, spec=p.spec)
+    return st, StepOut(info.link_forces, info.torques)
+
+
+def eager_step(p: Plant, state, actions):
+    """One control step of the eager engine (`physics.eager_control_step`,
+    the windows cut, no launch), as an env with the kernel off steps."""
+    st, info = phys.eager_control_step(p.ma, p.hf, p.params, p.pd, p.dr, p.dof_limits, state,
+                                       actions)
     return st, StepOut(info.link_forces, info.torques)
 
 
@@ -298,6 +309,8 @@ def main(argv=None):
                            reps=PLAIN_REPS, warmup=1)
     t_kernel = cuda_time_ms(lambda: fused_step.fused_control_step(*step_args), reps=args.iters,
                             warmup=1, ahead_ms=AHEAD_MS)
+    # the whole step of the eager engine, as the reference times its XLA step
+    t_eager = cuda_time_ms(lambda: eager_step(p, p.state, p.actions), reps=EAGER_REPS, warmup=1)
     result = {
         "metric": "fused_control_step",
         "batch": args.batch,
@@ -312,6 +325,9 @@ def main(argv=None):
         "plain_env_steps_per_s": round(args.batch / (t_plain * 1e-3)),
         "kernel_env_steps_per_s": round(args.batch / (t_kernel * 1e-3)),
         "speedup": round(t_plain / t_kernel, 3),
+        "eager_ms": round(t_eager, 3),
+        "eager_env_steps_per_s": round(args.batch / (t_eager * 1e-3)),
+        "eager_speedup": round(t_eager / t_kernel, 3),
         "device": device_info(dev),
     }
 

@@ -30,12 +30,11 @@ import json
 import math
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
 
-from legged_gym_custom_tpu_torch import DEFAULT_DEVICE, LEGGED_GYM_TORCH_ROOT_DIR
+from legged_gym_custom_tpu_torch import DEFAULT_DEVICE
 
 MODULE = "legged_gym_custom_tpu_torch.scripts.multihost_worker"
 
@@ -59,20 +58,6 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def _load_kernel_rank0_first(env, mesh):
-    """Rank 0 builds (or loads) the env's kernel; the others load it after a
-    barrier, so ranks that share a build directory run one nvcc."""
-    from legged_gym_custom_tpu_torch.ops import fused_step
-    from legged_gym_custom_tpu_torch.parallel.mesh import barrier
-
-    spec = env.fused_spec if env._torque_fn is None else fused_step.tick_spec(env.fused_spec)
-    if mesh.is_primary:
-        fused_step.load_kernel(spec, env.num_envs)
-    barrier(mesh)
-    if not mesh.is_primary:
-        fused_step.load_kernel(spec, env.num_envs)
-
-
 def _flat_params(nets):
     import torch
 
@@ -92,10 +77,10 @@ def run(args, device, mesh) -> dict:
     env_cfg, train_cfg = task_registry.get_cfgs(args.task)
     env_cfg.env.num_envs = multihost.local_env_count(args.num_envs)
     train_cfg.runner.max_iterations = args.iterations
-    env = task_registry.task_classes[args.task](env_cfg, env_cfg.asset.file, name=args.task,
-                                                device=device, mesh=mesh)
+    env = task_registry.get_task_class(args.task)(env_cfg, env_cfg.asset.file, name=args.task,
+                                                  device=device, mesh=mesh)
     if device.type == "cuda":
-        _load_kernel_rank0_first(env, mesh)
+        multihost.load_kernel_rank0_first(env, mesh)
     runner = OnPolicyRunner(env, train_cfg, log_dir=None)
 
     fused_step.reset_launch_counts()
@@ -176,47 +161,23 @@ def main(argv=None):
 
 
 def launch(num_processes: int, argv, timeout: float = 900.0, env=None, pin_cores=False):
-    """Start `num_processes` workers on this machine (ranks 0..n-1 on a free
-    localhost port, each with `argv`), wait for all, and return (the
-    primary's result, every rank's output).  A rank that fails, or a run
-    past `timeout` seconds, kills every rank and raises with their output.
-    `pin_cores` pins rank i to core i (taskset)."""
-    from legged_gym_custom_tpu_torch.parallel.multihost import free_port, stop_ranks, wait_ranks
+    """Start `num_processes` workers on this machine (`multihost.launch_module`,
+    each with `argv` and the `--coordinator` arguments), wait for all, and
+    return (the primary's result, every rank's output).  A rank that fails,
+    or a run past `timeout` seconds, kills every rank and raises with their
+    output.  `pin_cores` pins rank i to core i (taskset)."""
+    from legged_gym_custom_tpu_torch.parallel.multihost import launch_module
 
     tmp = tempfile.mkdtemp(prefix="lgc_workers_")
     result_json = os.path.join(tmp, "result.json")
-    port = free_port()
-    procs, logs = [], []
     try:
-        for rank in range(num_processes):
-            cmd = ["taskset", "-c", str(rank % (os.cpu_count() or 1))] if pin_cores else []
-            cmd += [sys.executable, "-m", MODULE, "--coordinator", f"127.0.0.1:{port}",
-                    "--num_processes", str(num_processes), "--process_id", str(rank),
-                    *argv, "--result_json", result_json]
-            logs.append(open(os.path.join(tmp, f"rank{rank}.log"), "w+"))
-            procs.append(subprocess.Popen(cmd, stdout=logs[-1], stderr=subprocess.STDOUT,
-                                          text=True, env=env, cwd=LEGGED_GYM_TORCH_ROOT_DIR))
-        failed = None
-        try:
-            wait_ranks(procs, timeout)
-        except RuntimeError as e:
-            failed = e
-        stop_ranks(procs)
-        outputs = []
-        for f in logs:
-            f.flush()
-            f.seek(0)
-            outputs.append(f.read())
-        if failed is not None or not os.path.exists(result_json):
-            tails = "\n".join(f"--- rank {r} (exit {p.poll()}):\n{out[-3000:]}"
-                              for r, (p, out) in enumerate(zip(procs, outputs)))
-            raise RuntimeError(f"{num_processes} workers failed ({failed}):\n{tails}")
+        outputs = launch_module(MODULE, num_processes, [*argv, "--result_json", result_json],
+                                timeout=timeout, env=env, pin_cores=pin_cores)
+        if not os.path.exists(result_json):
+            raise RuntimeError(f"{num_processes} workers wrote no result:\n{outputs[0][-3000:]}")
         with open(result_json) as f:
             return json.load(f), outputs
     finally:
-        stop_ranks(procs)
-        for f in logs:
-            f.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
 

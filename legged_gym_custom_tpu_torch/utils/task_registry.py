@@ -3,6 +3,13 @@
 Maps task name -> (env class, env cfg class, train cfg class) and builds
 envs/runners with CLI overrides applied; with `runner.resume` the runner
 loads the checkpoint `get_load_path` picks.
+
+With a mesh (parallel/mesh.py) the env count of the config is the global
+one and each rank builds its share; the primary rank draws the seed, names
+the run directory and resolves the checkpoint to resume, and broadcasts
+each, so every rank builds the same terrain, writes into one directory and
+loads one file (a rank that listed the log root itself could find the
+primary's new, empty run directory as the newest run).
 """
 from __future__ import annotations
 
@@ -10,6 +17,7 @@ import os
 from datetime import datetime
 from typing import Dict
 
+from legged_gym_custom_tpu_torch.parallel.mesh import broadcast_object
 from .config import set_seed
 
 
@@ -24,21 +32,33 @@ class TaskRegistry:
         self.env_cfgs[name] = env_cfg
         self.train_cfgs[name] = train_cfg
 
+    def get_task_class(self, name: str):
+        return self.task_classes[name]
+
     def get_cfgs(self, name: str):
         """Fresh instantiated cfg pair for the task."""
         return self.env_cfgs[name](), self.train_cfgs[name]()
 
-    def make_env(self, name: str, args=None, env_cfg=None, device="cuda"):
-        """Build the env object on `device` (reference :35-72)."""
+    def make_env(self, name: str, args=None, env_cfg=None, device="cuda", mesh=None):
+        """Build the env object on `device` (reference :35-72).  With `mesh`
+        the config's `env.num_envs` is the global count: it becomes this
+        rank's share (`multihost.local_env_count`), and every rank takes the
+        primary's seed."""
         if name not in self.task_classes:
             raise ValueError(f"Task with name: {name} was not registered")
+        task_class = self.get_task_class(name)
         if env_cfg is None:
             env_cfg, _ = self.get_cfgs(name)
         if args is not None:
             update_cfg_from_args(env_cfg, None, args)
         seed = set_seed(getattr(args, "seed", None) if args else None)
-        env = self.task_classes[name](env_cfg, env_cfg.asset.file, name=name, device=device,
-                                      terrain_seed=seed)
+        if mesh is not None:
+            from legged_gym_custom_tpu_torch.parallel.multihost import local_env_count
+
+            env_cfg.env.num_envs = local_env_count(env_cfg.env.num_envs)
+            seed = set_seed(broadcast_object(mesh, seed))
+        env = task_class(env_cfg, env_cfg.asset.file, name=name, device=device,
+                         terrain_seed=seed, mesh=mesh)
         return env, env_cfg
 
     def make_alg_runner(self, env, name=None, args=None, train_cfg=None, log_root="default"):
@@ -55,15 +75,22 @@ class TaskRegistry:
         if log_root == "default":
             log_root = os.path.join(LEGGED_GYM_TORCH_ROOT_DIR, "logs",
                                     train_cfg.runner.experiment_name)
-        log_dir = None if log_root is None else os.path.join(
-            log_root, datetime.now().strftime("%b%d_%H-%M-%S") + "_" + train_cfg.runner.run_name)
+        mesh = env.mesh
+        log_dir = resume_path = None
+        if train_cfg.runner.resume and log_root is None:
+            raise ValueError("resume needs a log_root to look for runs in")
+        if mesh is None or mesh.is_primary:
+            if log_root is not None:
+                log_dir = os.path.join(log_root, datetime.now().strftime("%b%d_%H-%M-%S")
+                                       + "_" + train_cfg.runner.run_name)
+            if train_cfg.runner.resume:
+                resume_path = get_load_path(log_root, load_run=train_cfg.runner.load_run,
+                                            checkpoint=train_cfg.runner.checkpoint)
+        log_dir, resume_path = broadcast_object(mesh, (log_dir, resume_path))
         runner = OnPolicyRunner(env, train_cfg, log_dir=log_dir)
-        if train_cfg.runner.resume:
-            if log_root is None:
-                raise ValueError("resume needs a log_root to look for runs in")
-            resume_path = get_load_path(log_root, load_run=train_cfg.runner.load_run,
-                                        checkpoint=train_cfg.runner.checkpoint)
-            print(f"Loading model from: {resume_path}", flush=True)
+        if resume_path is not None:
+            if runner.is_primary:
+                print(f"Loading model from: {resume_path}", flush=True)
             runner.load(resume_path)
         return runner, train_cfg
 

@@ -195,12 +195,89 @@ def test_engine_on_card_raises_for_uncovered_heightfield_variants(parkour_env):
             env.dof_limits, tphys.PhysicsState(*state), actions)
     for params in (env.sim_params._replace(patch_halfwidth=0.0),
                    env.sim_params._replace(terrain_tick_sample=False)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="LGC_FUSED_KERNEL=0"):
             tphys.control_step(*base[:2], params, *base[3:], spec=env.fused_spec)
     with pytest.raises(NotImplementedError, match="'V'"):
         tphys.control_step(*base, spec=env.fused_spec._replace(control_type="V"))
     with pytest.raises(NotImplementedError):   # no window for a heightfield spec
         fused_step.fused_control_step(env.fused_spec, state, actions, dr)
+    # the wrapper itself refuses a per-substep spec, windows and all
+    per_substep = fused_step.build_spec(
+        env.ma, env.sim_params._replace(terrain_tick_sample=False), env.pd, env.dof_limits,
+        hf_K=env.fused_spec.hf_K, hf_hs=env.fused_spec.hf_hs)
+    assert per_substep == env.fused_spec._replace(terrain_tick_sample=False)
+    terrain = fused_step.patch_inputs(patch.extract(env.hf, state[0][0], state[0][1],
+                                                    env.fused_spec.hf_K))
+    fused_step.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="terrain_tick_sample"):
+        fused_step.fused_control_step(per_substep, state, actions, dr, terrain)
+    assert not any(fused_step.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_opt_out_runs_the_eager_engine_on_the_card(go2_env, parkour_env, monkeypatch):
+    """The eager engine that an env with the kernel off calls by name
+    (`physics.eager_control_step`) launches no kernel on CUDA tensors and
+    agrees with the kernel's step on the same inputs (the go2 batch, and the
+    gap-course batch); the heightfield modes no kernel covers run in it.
+    `LGC_FUSED_KERNEL=0` in the environment does not reach
+    `physics.control_step`: it still launches the kernel."""
+    monkeypatch.setenv("LGC_FUSED_KERNEL", "0")
+    for env, (state, actions, dr), tol in ((go2_env, _batch(30), TOL),
+                                           (parkour_env, _parkour_batch(parkour_env, 31), HF_TOL)):
+        args = (env.ma, env.hf, env.sim_params, env.pd, tphys.DomainRandParams(*dr),
+                env.dof_limits, tphys.PhysicsState(*state), actions)
+        fused_step.reset_launch_counts()
+        st_k, info_k = tphys.control_step(*args, spec=env.fused_spec)
+        torch.cuda.synchronize()
+        assert sum(fused_step.launch_counts().values()) == 1
+        fused_step.reset_launch_counts()
+        st, info = tphys.eager_control_step(*args)
+        modes = [tphys.eager_control_step(*args[:2], env.sim_params._replace(**mode), *args[3:])
+                 for mode in (dict(patch_halfwidth=0.0), dict(terrain_tick_sample=False))]
+        torch.cuda.synchronize()
+        assert not any(fused_step.launch_counts().values())
+        _assert_close_p99(NAMES, (*st, info.link_forces, info.torques),
+                          (*st_k, info_k.link_forces, info_k.torques), tol)
+        for st_m, _ in modes:
+            assert all(bool(torch.isfinite(x).all()) for x in st_m)
+
+
+@pytest.mark.cuda
+def test_opt_out_env_mppi_and_actuated_step_launch_nothing(card, tmp_path_factory, monkeypatch):
+    """Envs built under `LGC_FUSED_KERNEL=0` (go2_parkour in a per-substep
+    terrain mode, ANYmal's actuated plant) keep the kernel off after the
+    flag is gone: they carry no spec, and their steps and an MPPI solve on
+    the card launch no kernel; a go2 env with `sim.fused_kernel = False`
+    likewise."""
+    from legged_gym_custom_tpu_torch.mpc import MPPI, MPPIConfig
+
+    monkeypatch.setenv("LGC_FUSED_KERNEL", "0")
+    cfg, _ = task_registry.get_cfgs("go2_parkour")
+    cfg.env.num_envs = 64
+    env, _ = task_registry.make_env("go2_parkour", env_cfg=cfg, device="cuda")
+    anymal = _robot_env("anymal_c_flat", tmp_path_factory)
+    monkeypatch.delenv("LGC_FUSED_KERNEL")
+    go2_cfg, _ = task_registry.get_cfgs("go2")
+    go2_cfg.env.num_envs = 64
+    go2_cfg.sim.fused_kernel = False
+    go2 = task_registry.make_env("go2", env_cfg=go2_cfg, device="cuda")[0]
+    env.sim_params = env.sim_params._replace(terrain_tick_sample=False)
+    fused_step.reset_launch_counts()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for e in (env, anymal, go2):
+        assert not e.fused_kernel and e.fused_spec is None
+        state, _ = e.reset_all(gen)
+        state, obs, rew, _, _ = e.step(state, torch.zeros((e.num_envs, e.num_actions),
+                                                          device="cuda"))
+        assert bool(torch.isfinite(obs.obs).all()) and bool(torch.isfinite(rew).all())
+        if e is env:
+            mpc = MPPI(env, MPPIConfig(horizon=2, num_samples=4))
+            actions, _, _ = mpc.solve(mpc.init_state(64), state.physics, state.dr,
+                                      state.commands, gen)
+    torch.cuda.synchronize()
+    assert mpc.spec is None and bool(torch.isfinite(actions).all())
+    assert not any(fused_step.launch_counts().values())
 
 
 @pytest.mark.cuda
@@ -518,3 +595,88 @@ def test_two_nccl_ranks_on_two_cards_train_through_k1(card, tmp_path):
     assert [r["local_envs"] for r in result["ranks"]] == [128, 128]
     assert result["params_bit_equal"] and result["restored_iteration"] == 1
     assert all(r["losses_finite"] for r in result["ranks"])
+
+
+@pytest.mark.cuda
+def test_train_script_on_two_gloo_ranks_of_one_card(card):
+    """`scripts.train` as two ranks sharing cuda:0 (gloo) under torch's
+    variables, go2 at 256 global envs for one iteration: one run directory,
+    the primary's checkpoints and event file; each rank launches K1 once
+    per env step and in `reset_all`, and nothing else; the parameters come
+    out bit-equal across ranks."""
+    import json
+    import os
+    import shutil
+
+    from legged_gym_custom_tpu_torch import LEGGED_GYM_TORCH_ROOT_DIR
+    from legged_gym_custom_tpu_torch.parallel import multihost
+    from legged_gym_custom_tpu_torch.scripts import train as train_script
+
+    experiment = "test_train_script_ranks"
+    root = os.path.join(LEGGED_GYM_TORCH_ROOT_DIR, "logs", experiment)
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        outputs = multihost.launch_module(
+            train_script.MODULE, 2, ["--task", "go2", "--num_envs", "256", "--max_iterations",
+                                     "1", "--device", "cuda:0", "--experiment_name", experiment],
+            timeout=600, torch_env=True)
+        line = next(l for l in outputs[0].splitlines() if l.startswith("[train] ranks: "))
+        report = json.loads(line[len("[train] ranks: "):])
+        assert (report["world_size"], report["backend"], report["iteration"]) == (2, "gloo", 1)
+        assert [r["launches"] for r in report["ranks"]] == [{"fused_control_step": 1 + 24}] * 2
+        assert [r["local_envs"] for r in report["ranks"]] == [128, 128]
+        assert report["params_bit_equal"]
+        runs = os.listdir(root)
+        assert len(runs) == 1 and os.path.join(root, runs[0]) == report["log_dir"]
+        files = os.listdir(report["log_dir"])
+        assert sorted(f for f in files if f.startswith("model_")) == ["model_0.pt", "model_1.pt"]
+        assert len([f for f in files if "tfevents" in f]) == 1
+        assert "Learning iteration 0/1" in outputs[0] and "Learning iteration" not in outputs[1]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+@pytest.mark.cuda
+def test_train_script_started_plainly_runs_a_rank_a_card(card):
+    """`python -m ...scripts.train --task go2 --device cuda`, started with no
+    torch variables on a machine with several cards, runs one nccl rank a
+    card (cards_to_use: every visible card), go2 at 1024 global envs for
+    one iteration: ranks on cuda:0, cuda:1, ...; each launches K1 once per
+    env step and in `reset_all`, and nothing else; one run directory; the
+    console block once; the parameters bit-equal across ranks."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices: a plain start on one card stays one process")
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from legged_gym_custom_tpu_torch import LEGGED_GYM_TORCH_ROOT_DIR
+    from legged_gym_custom_tpu_torch.scripts import train as train_script
+
+    experiment = "test_train_script_plain_start"
+    root = os.path.join(LEGGED_GYM_TORCH_ROOT_DIR, "logs", experiment)
+    shutil.rmtree(root, ignore_errors=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", train_script.MODULE, "--task", "go2", "--num_envs", "1024",
+             "--max_iterations", "1", "--device", "cuda", "--experiment_name", experiment],
+            cwd=LEGGED_GYM_TORCH_ROOT_DIR, env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        assert f"[train] {n} ranks, one per card" in proc.stdout
+        line = next(l for l in proc.stdout.splitlines() if l.startswith("[train] ranks: "))
+        report = json.loads(line[len("[train] ranks: "):])
+        assert (report["world_size"], report["backend"], report["iteration"]) == (n, "nccl", 1)
+        assert [r["device"] for r in report["ranks"]] == [f"cuda:{i}" for i in range(n)]
+        assert [r["launches"] for r in report["ranks"]] == [{"fused_control_step": 1 + 24}] * n
+        assert sum(r["local_envs"] for r in report["ranks"]) == 1024
+        assert report["params_bit_equal"] and all(r["losses_finite"] for r in report["ranks"])
+        runs = os.listdir(root)
+        assert len(runs) == 1 and os.path.join(root, runs[0]) == report["log_dir"]
+        assert proc.stdout.count("Learning iteration 0/1") == 1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)

@@ -133,10 +133,10 @@ def test_stage_config_matches_reference(task):
     env_j, train_j = jtask_registry.get_cfgs(task)
     tree_t, tree_j = _cfg_tree(env_t), _cfg_tree(env_j)
     # the deliberate differences: the port ships its own synthetic URDF, and
-    # has no TPU mesh block (base_config.py:4)
+    # its sim block adds the choice of engine on the card (kernel by default)
     assert tree_t["asset"].pop("file").endswith("go2_synthetic.urdf")
     tree_j["asset"].pop("file")
-    tree_j.pop("parallel")
+    assert tree_t["sim"].pop("fused_kernel") is True
     _diff(tree_t, tree_j, task)
     _diff(_cfg_tree(train_t), _cfg_tree(train_j), task + " train")
     assert train_t.runner.resume and train_t.runner.experiment_name == "go2_parkour"

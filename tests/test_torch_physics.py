@@ -215,7 +215,10 @@ def test_plain_kernel_matches_reference_components():
     state, dr, actions = _rand_batch(4, 64, GO2_DEFAULT)
     spec_j = jfused.build_spec(ma_j, _plant(12, True), pd_j, dl_j)
     spec_t = tfused.build_spec(ma_t, _plant(12, False), pd_t, dl_t)
-    for field in tfused.FusedSpec._fields:
+    # the port's spec adds the terrain sampling mode, which JAX's lacks
+    assert tfused.FusedSpec._fields == jfused.FusedSpec._fields + ("terrain_tick_sample",)
+    assert spec_t.terrain_tick_sample is True
+    for field in jfused.FusedSpec._fields:
         a, b = getattr(spec_t, field), getattr(spec_j, field)
         if isinstance(a, str):
             assert a == b, field
@@ -282,14 +285,18 @@ def test_uncovered_variants_raise():
     """'V' control, on the plane and on a heightfield, a heightfield step
     with no window, and per-substep terrain resampling raise
     NotImplementedError rather than running another path; the K2 options
-    ('T' control, implicit stiction) are covered and run."""
+    ('T' control, implicit stiction) are covered and run.  The terrain
+    modes are refused where a kernel would launch (the engine's check on
+    the card, whose message names the opt-out, and the wrapper for a
+    per-substep spec); their spec builds."""
     spec = _go2_spec()
     state, actions, dr = _batch_t()
     hf_spec = spec._replace(hf_K=24, hf_hs=0.1)
     terrain = (torch.zeros(8, 24, 24), torch.zeros(8), torch.zeros(8))
     for bad, tr in ((spec._replace(control_type="V"), None),
                     (hf_spec._replace(control_type="V"), terrain),
-                    (hf_spec, None)):
+                    (hf_spec, None),
+                    (hf_spec._replace(terrain_tick_sample=False), terrain)):
         with pytest.raises(NotImplementedError):
             tfused.fused_control_step(bad, state, actions, dr, tr)
     for covered, tr in ((spec._replace(control_type="T"), None),
@@ -299,9 +306,15 @@ def test_uncovered_variants_raise():
         out = tfused.fused_control_step(covered, state, actions, dr, tr)
         assert all(bool(torch.isfinite(t).all()) for t in (*out[0], out[1], out[2]))
     _, (ma_t, pd_t, dl_t) = _both(SYNTHETIC_GO2_URDF, GO2_DEFAULT)
-    with pytest.raises(NotImplementedError, match="terrain_tick_sample"):
-        tfused.build_spec(ma_t, _plant(12, False)._replace(terrain_tick_sample=False),
-                          pd_t, dl_t, hf_K=24, hf_hs=0.1)
+    per_substep = _plant(12, False)._replace(terrain_tick_sample=False)
+    assert tfused.build_spec(ma_t, per_substep, pd_t, dl_t, hf_K=24, hf_hs=0.1) == \
+        tfused.build_spec(ma_t, _plant(12, False), pd_t, dl_t, hf_K=24,
+                          hf_hs=0.1)._replace(terrain_tick_sample=False)
+    hf = tphys.from_raw(np.zeros((64, 64), np.int16), 0.1, 0.005, 1.0)
+    for params, mode in ((per_substep, "terrain_tick_sample"),
+                         (_plant(12, False)._replace(patch_halfwidth=0.0), "patch_halfwidth")):
+        with pytest.raises(NotImplementedError, match=f"{mode}.*LGC_FUSED_KERNEL=0"):
+            tphys.engine._check_kernel_terrain(hf, params)
 
 
 def test_spec_header_bakes_the_model():

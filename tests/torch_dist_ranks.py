@@ -139,3 +139,79 @@ def command_curriculum(mesh, reset_envs, v):
                        CURRICULUM_ENVS)
     env, _ = go2_env(mesh, num_envs=CURRICULUM_ENVS, **CURRICULUM)
     return curriculum_steps(env, state, mesh.comm)
+
+
+def _params_sha(nets) -> str:
+    import hashlib
+
+    flat = torch.cat([t.detach().reshape(-1).float().cpu() for t in nets.state_dict().values()])
+    return hashlib.sha256(flat.numpy().tobytes()).hexdigest()
+
+
+def train_script_on_rank(mesh, runs, log_root, parkour=False):
+    """`scripts.train.train` on this rank for each argv of `runs`, in turn,
+    into `log_root`; a run of task `go2_stage` trains go2 with a config
+    that sets `runner.resume`, as the parkour stages do.  Records the seeds
+    `set_seed` gave, this rank's calls of `get_load_path` and what each
+    `runner.load` loaded (path, parameters' checksum, iteration).  Returns
+    per run: the env's share, its plane grid of origins (`_initial_origins`
+    of a generator seeded 0), the run directory, the iterations trained and
+    the parameters' checksum; with `parkour`, an unseeded go2_parkour env's
+    terrain checksum and types built after the runs.  One torch thread a
+    rank: the eager CPU step's small ops only lose to more threads when
+    other processes share the cores."""
+    import hashlib
+    import importlib
+
+    torch.set_num_threads(1)
+
+    from legged_gym_custom_tpu_torch.envs.go2_config import Go2Cfg, Go2CfgPPO
+    from legged_gym_custom_tpu_torch.envs.go2_env import Go2Env
+    from legged_gym_custom_tpu_torch.scripts import train as train_script
+
+    # the module: `utils.task_registry` as an attribute is the registry
+    registry_lib = importlib.import_module("legged_gym_custom_tpu_torch.utils.task_registry")
+
+    class StageCfgPPO(Go2CfgPPO):
+        class runner(Go2CfgPPO.runner):
+            resume = True
+
+    task_registry.register("go2_stage", Go2Env, Go2Cfg, StageCfgPPO)
+    seeds, listed, loads = [], [], []
+    set_seed, get_load_path = registry_lib.set_seed, registry_lib.get_load_path
+
+    def record_seed(seed):
+        seeds.append(set_seed(seed))
+        return seeds[-1]
+
+    def record_listing(*a, **kw):
+        listed.append(get_load_path(*a, **kw))
+        return listed[-1]
+
+    registry_lib.set_seed, registry_lib.get_load_path = record_seed, record_listing
+    load = OnPolicyRunner.load
+
+    def record_load(self, path, *a, **kw):
+        out = load(self, path, *a, **kw)
+        loads.append((path, _params_sha(self.nets), self.current_learning_iteration))
+        return out
+
+    OnPolicyRunner.load = record_load
+    out = []
+    for argv in runs:
+        runner, history = train_script.train(train_script.get_args(argv), log_root=log_root)
+        env = runner.env
+        out.append({"num_envs": env.num_envs, "env_offset": env.env_offset,
+                    "mesh_is_env_mesh": runner.mesh is env.mesh and env.mesh.rank == mesh.rank,
+                    "origins": env._initial_origins(torch.Generator().manual_seed(0))[2].numpy(),
+                    "log_dir": runner.log_dir, "iterations": [h["iteration"] for h in history],
+                    "params_sha256": _params_sha(runner.nets)})
+    result = {"runs": out, "seeds": seeds, "listed": listed, "loads": loads}
+    if parkour:
+        env, _ = task_registry.make_env("go2_parkour", args=train_script.get_args(
+            ["--task", "go2_parkour", "--num_envs", "16", "--device", "cpu"]), device="cpu",
+            mesh=mesh)
+        result["parkour"] = {
+            "terrain_sha256": hashlib.sha256(env.hf.data.numpy().tobytes()).hexdigest(),
+            "terrain_types": env.terrain_types.numpy(), "env_offset": env.env_offset}
+    return result
