@@ -9,9 +9,10 @@ Phases (any failure exits non-zero; the last line is printed only on success):
   1. card    - device name and `nvidia-smi` name / power limit;
   2. build   - nvcc-builds every kernel of the main paths from the sources in
                this checkout, one build per spec, all started together (with
-               them the builds of phases 3 and 4 that no path runs: K1 at one
-               lane per leg, the kernel on the tests' small tree, and the K3
-               spec of the MPPI pit course if it names a library of its own):
+               them the builds of phases 3, 4 and 10 that no path runs: K1 at
+               one and at four lanes per leg, the kernel on the tests' small tree, the
+               bipeds' specs at a pair of lanes a leg, and the K3 spec of the
+               MPPI pit course if it names a library of its own):
                with them the measurement kernels of the roofline
                (ops/csrc/peaks.cu) and, if it names a library of its own,
                the K3 spec of scripts/check_fused_gpu.py's receipt;
@@ -22,8 +23,8 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                `fused_control_step_T_hf` ('T' control with implicit stiction
                on the go2_parkour heightfield, the combination farthest from
                K1); prints build seconds, each ptxas register / spill report
-               and each launch shape (lanes per env, block, grid, shared
-               memory, resident blocks per SM);
+               and each launch shape (lanes per env and per branch, block,
+               grid, shared memory, resident blocks per SM);
   3. check   - each kernel against its plain PyTorch version on the card, at
                the main path's shapes, B = 4096 envs on the synthetic
                Go2-shaped URDF: K1 on a seeded random batch, the heightfield
@@ -66,7 +67,9 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                count of the roofline line too); K1 also at B = 1024
                and 16384; and K1 in turns within this call at a lane per leg
                (G = 4) against a pair of lanes per leg (G = 8), at MPPI's
-               batches B*K = 128 and 65536 and at 4096-16384 envs, with K1's
+               batches B*K = 128 and 65536 and at 4096-16384 envs (at 4096
+               also at four lanes per leg, G = 16, the layout for deep chains
+               that Go2's legs of 3 do not take), with K1's
                bound at 65536 rollouts in the layout the wrapper runs there
                (G = 4); every build's bound from the data sheet's peaks and
                from those measured; last the K3 receipt, `check_fused_gpu
@@ -148,11 +151,16 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                'T' specs (decimation 1, action scale 1: the network's torques
                are the actions, one launch a decimation tick),
                `fused_control_step_hf[cassie]` and `fused_control_step[g1]`,
-               the bipeds' chains of 6 at a pair of lanes a leg (G = 4); each
+               the bipeds' chains of 6 in the layout for deep chains (four
+               lanes a leg, the inward pass split by block, G = 8); each
                against its plain version at 4096 envs on the synthetic URDFs
                (each robot at its standing height, on the rough builds a
                quarter of the bases within 0.3 m of a height step) with
-               phase 3's gates, and timed with its bound as in phase 4; the
+               phase 3's gates, and timed with its bound as in phase 4; each
+               build's layout (lanes a branch as the spec gives them) and no
+               spill, gated; the bipeds' builds against the same specs at a
+               pair of lanes a leg (G = 4, built in phase 2), timed in turns
+               a, b, b, a, uncounted; the
                tick-wise actuated step (`physics.actuated_control_step` on the
                card) against the eager loop on the ANYmal plane and rough
                terrain, the LSTM state included, with exactly `decimation`
@@ -1346,12 +1354,14 @@ def lstm_share(runner, step: dict, card: str):
         f"{step['device_ms']:.3f} ms device time | {card}")
 
 
-def other_robots_phase(device, card, envs, specs, names, peaks):
+def other_robots_phase(device, card, envs, specs, names, peaks, pair_kernels):
     """Phase 10: the other robots' builds at 4096 envs against their plain
-    versions and timed, the tick-wise actuated step against the eager loop on
-    the card, and the four tasks trained through the train CLI's `train`.
-    Returns ({task: timing}, {task: max abs error}, {task: launches}) or None
-    on a failed gate."""
+    versions and timed, each with its layout and no spill; the bipeds' layout
+    for deep chains against their builds at a pair of lanes a leg
+    (`pair_kernels`, by task), in turns; the tick-wise actuated step against
+    the eager loop on the card, and the four tasks trained through the train
+    CLI's `train`.  Returns ({task: timing}, {task: max abs error}, {task:
+    launches}) or None on a failed gate."""
     import torch_tree_model as tree_model
 
     from legged_gym_custom_tpu_torch import physics as phys
@@ -1380,6 +1390,30 @@ def other_robots_phase(device, card, envs, specs, names, peaks):
                                     peaks=peaks)
         timings[task]["eager_ms"] = time_eager(names[task], env, args,
                                                one_tick=env._torque_fn is not None)
+        # the build the wrapper launched: its layout follows from the spec, no spill
+        kernel = fused_step.load_kernel(spec, NUM_ENVS)
+        info = fused_step.launch_info(kernel, NUM_ENVS)
+        summary = fused_step.ptxas_summary(kernel.ptxas)
+        lanes = fused_step.lanes_per_branch_for(spec)
+        ok_l = info["lanes_per_branch"] == lanes and summary.get("spill_store_bytes") == 0 \
+            and summary.get("spill_load_bytes") == 0
+        log(f"[layout] {names[task]} at B={NUM_ENVS}: {lanes} lanes a branch, G "
+            f"{info['lanes_per_env']}, {info['grid']} blocks of {info['block']}, "
+            f"{info['dynamic_shared_bytes']} B shared, {info['resident_blocks_per_sm']} resident "
+            f"per SM; ptxas {json.dumps(summary)} {'ok' if ok_l else 'FAIL'} | {card}")
+        ok &= ok_l
+        if task in pair_kernels:   # the layout for deep chains against a pair, a, b, b, a
+            runs = {"deep": lambda: fused_step.launch_kernel(kernel, spec, *args),
+                    "pair": lambda: fused_step.launch_kernel(pair_kernels[task], spec, *args)}
+            times = {k: [] for k in runs}
+            for k in ("deep", "pair", "pair", "deep"):
+                times[k].append(cuda_time_ms(runs[k], reps=50, ahead_ms=AHEAD_MS))
+            pair_info = fused_step.launch_info(pair_kernels[task], NUM_ENVS)
+            log(f"[layout] {names[task]} B={NUM_ENVS}, medians of 50 in turns a, b, b, a: four "
+                f"lanes a leg (G = {info['lanes_per_env']}, {info['registers']} registers) "
+                f"{times['deep'][0]:.4f}, {times['deep'][1]:.4f} ms; a pair of lanes a leg (G = "
+                f"{pair_info['lanes_per_env']}, {pair_info['registers']} registers) "
+                f"{times['pair'][0]:.4f}, {times['pair'][1]:.4f} ms | {card}")
     if not ok:
         log("[check] FAIL: an other robot's build disagrees with its plain version")
         return None
@@ -1943,9 +1977,11 @@ def main() -> int:
     # once.  The layout follows from the spec and the batch (`lanes_for_batch`:
     # a pair of lanes per leg, G = 8, up to 4096 envs); beside the paths'
     # four, K1 at one lane per leg (G = 4), which MPPI's 65536 rollouts run
-    # and phase 4 compares, and the test tree.
+    # and phase 4 compares, K1 at four lanes per leg, which phase 4 compares,
+    # and the test tree.
     lanes = fused_step.lanes_per_branch_for(specs["fused_control_step"])
     one_lane = "K1 at one lane per leg"
+    four_lanes = "K1 at four lanes per leg"    # the layout for deep chains, not Go2's
     tree_specs = {"test tree, plane, 'P', tanh": tree_model.tree_spec(),
                   "test tree, heightfield, 'T', implicit stiction":
                       tree_model.tree_spec(TREE_K, TREE_HS, "T", True)}
@@ -1995,7 +2031,15 @@ def main() -> int:
     robot_builds = {robot_names[task]: fused_step.KernelBuild(spec)
                     for task, spec in robot_specs.items()}
     other_builds = {one_lane: fused_step.KernelBuild(specs["fused_control_step"], 1),
+                    four_lanes: fused_step.KernelBuild(specs["fused_control_step"], 4),
                     **{label: fused_step.KernelBuild(spec) for label, spec in tree_specs.items()}}
+    # the bipeds' chains of 6 also at a pair of lanes a leg, the layout before
+    # the one for deep chains, which phase 10 times against it
+    deep_tasks = [task for task, spec in robot_specs.items()
+                  if fused_step.lanes_per_branch_for(spec) == 4]
+    pair_label = lambda task: f"{robot_names[task]} at a pair of lanes a leg"
+    for task in deep_tasks:
+        other_builds[pair_label(task)] = fused_step.KernelBuild(robot_specs[task], 2)
     if pit_own:
         other_builds[pit_label] = fused_step.KernelBuild(pit_spec)
     if receipt_own:
@@ -2010,7 +2054,9 @@ def main() -> int:
         f"{time.time() - t0:.2f}s wall ({len(builds)} of the main paths at 4096 envs, "
         f"{len(robot_builds)} of the other robots' paths, {len(other_builds)} of MPPI's 65536 "
         f"rollouts and of the layout, tree and MPPI checks); lanes per leg: {lanes} up to "
-        f"{fused_step.PAIR_MAX_ENVS} envs, 1 above")
+        f"{fused_step.PAIR_MAX_ENVS} envs, 1 above; the bipeds' chains of 6: "
+        f"{fused_step.lanes_per_branch_for(robot_specs[deep_tasks[0]]) if deep_tasks else None} "
+        f"up to {fused_step.PAIR_MAX_ENVS} envs ({', '.join(deep_tasks)})")
     for name, kernel in {**kernels, **robot_kernels, **other_kernels}.items():
         summary = fused_step.ptxas_summary(kernel.ptxas)
         B = MPPI_ROLLOUTS if name == one_lane else NUM_ENVS
@@ -2079,12 +2125,13 @@ def main() -> int:
         ok &= check("fused_control_step", f"K1 B={B}", rand_batch(8, B, device), TOLERANCES)[0]
         ok &= check("fused_control_step_hf", f"K3 B={B}",
                     parkour_batch(parkour, 9, device, B)[:4], HF_TOLERANCES)[0]
-    # K1 at one lane per leg, which phase 4 times
+    # K1 at one and at four lanes per leg, which phase 4 times
     name = "fused_control_step"
-    out = fused_step.launch_kernel(other_kernels[one_lane], specs[name], *args[name])
-    out = (out[:6], out[6].view(specs[name].n_links, 3, NUM_ENVS), out[7])
-    ok &= check_kernel(f"{one_lane}, against the wrapper's layout", NAMES, TOLERANCES, out,
-                       outs[name])[0]
+    for label in (one_lane, four_lanes):
+        out = fused_step.launch_kernel(other_kernels[label], specs[name], *args[name])
+        out = (out[:6], out[6].view(specs[name].n_links, 3, NUM_ENVS), out[7])
+        ok &= check_kernel(f"{label}, against the wrapper's layout", NAMES, TOLERANCES, out,
+                           outs[name])[0]
     # the test tree: padded slots, an empty lane, parents that differ by lane,
     # a dense joint rotation
     for label, spec in tree_specs.items():
@@ -2149,12 +2196,18 @@ def main() -> int:
         batch = args["fused_control_step"] if B == NUM_ENVS else rand_batch(14, B, device)
         runs = {"pair": lambda: fused_step.launch_kernel(kernels["fused_control_step"], k1, *batch),
                 "one": lambda: fused_step.launch_kernel(other_kernels[one_lane], k1, *batch)}
+        turns = ("pair", "one", "one", "pair")
+        if B == NUM_ENVS:   # and the layout for deep chains, which the spec's rule does not give Go2
+            runs["four"] = lambda: fused_step.launch_kernel(other_kernels[four_lanes], k1, *batch)
+            turns = ("pair", "one", "four", "four", "one", "pair")
         times = {k: [] for k in runs}
-        for k in ("pair", "one", "one", "pair"):
+        for k in turns:
             times[k].append(cuda_time_ms(runs[k], reps=50, ahead_ms=AHEAD_MS))
+        four = (f"; four lanes per leg (G = 16) {times['four'][0]:.4f}, {times['four'][1]:.4f} ms"
+                if "four" in times else "")
         log(f"[layout] fused_control_step B={B}, medians of 50 in turns a, b, b, a: a pair of "
             f"lanes per leg (G = 8) {times['pair'][0]:.4f}, {times['pair'][1]:.4f} ms; one lane "
-            f"per leg (G = 4) {times['one'][0]:.4f}, {times['one'][1]:.4f} ms")
+            f"per leg (G = 4) {times['one'][0]:.4f}, {times['one'][1]:.4f} ms{four} | {smi}")
         if B == MPPI_ROLLOUTS:   # the layout the wrapper runs there: one lane per leg
             outs = runs["one"]()
             b = kernel_bound(k1, batch, outs)
@@ -2263,7 +2316,8 @@ def main() -> int:
 
     # ---- 10. the other robots: ANYmal's SEA network through one-tick 'T'
     # launches, Cassie and G1 through the biped builds
-    result = other_robots_phase(device, smi, robot_envs, robot_specs, robot_names, peaks)
+    result = other_robots_phase(device, smi, robot_envs, robot_specs, robot_names, peaks,
+                                {task: other_kernels[pair_label(task)] for task in deep_tasks})
     if result is None:
         return 1
     robot_timings, robot_errs, robot_launches = result

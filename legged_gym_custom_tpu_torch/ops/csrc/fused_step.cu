@@ -42,6 +42,17 @@
 //     base's 6x6 itself, so the base acceleration needs no broadcast.  All
 //     lanes of a warp stay alive to the end; an env beyond B computes on the
 //     last env's inputs and only its stores are masked.
+//   * Deep chains (LGC_P_SPLIT, LGC_P_LPB == 4; the bipeds' legs of 6): a
+//     pair a branch gave 4096 envs 512 warps, one a scheduler, so each
+//     dependent step of the 6-slot walk paid its full latency, and both
+//     lanes walked the whole inward pass.  Four lanes a branch double the
+//     warps; outward each walks the chain and takes a quarter of the
+//     spheres, and inward each carries one block of the articulated inertia
+//     (I, H or M) through its rank-1 update and rotation, the lanes meeting
+//     by shuffles where a step needs another's block.  Registers stay at or
+//     under 255 with no spill (2 blocks/SM hold all 256 blocks of 4096 envs
+//     at once); per-slot state is not moved to shared memory, since forcing
+//     3 blocks/SM only spilled and ran slower on an H100 (PERF.md section 6).
 //   * One loop over the slots of a lane, unrolled.  A constant that all
 //     lanes share at a slot is a compile-time constant there (LC folds to
 //     it); one that differs by lane (the legs mirror each other) is read
@@ -664,6 +675,182 @@ __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, flo
     sphere_contact(LGC_P_ENT0_BASE + i, E0b, zero3, v0, pos, mu, ftab, lane, scr, win, xoff, yoff,
                    sample_now, last_tick, wb);
 
+#if LGC_P_SPLIT
+  // ---- inward, the layout for deep chains: the LPB = 4 lanes of a branch
+  // each carry one block of the articulated inertia [[I, H], [H^T, M]] (the
+  // lane's `role`: 0 I, 1 H, 2 M; 3 repeats M and adds nothing) through its
+  // rank-1 update and rotation, and meet by shuffles where a step needs
+  // another lane's block: U = IA [a; 0] takes I a from role 0 and H^T a from
+  // role 1, the bias force sums the lanes' shares of Ia c, and the shift to
+  // the parent takes M~ and H~ from roles 2 and 1.  The bias force, U, d and
+  // u are computed alike in all four lanes (identical inputs, identical bits).
+  const int role = lane % LPB;
+  const int blk = role < 2 ? role : 2;
+  const int lead = (static_cast<int>(threadIdx.x) & 31) - role;   // the branch's role-0 lane
+  float cX[D + 1][9], cP[D + 1][6];
+  if (!UNIFORM) {
+#pragma unroll
+    for (int t = 0; t <= D; ++t) {
+#pragma unroll
+      for (int i = 0; i < 9; ++i) cX[t][i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) cP[t][i] = 0.f;
+    }
+  }
+  float Uw[D][3], Uv[D][3], inv_d[D], u[D];
+#pragma unroll
+  for (int s = D - 1; s >= 0; --s) {
+    const int k = ROTK[s];
+    const float m = LC(MASS, s);
+    const float h[3] = {LC(MH, 3 * s), LC(MH, 3 * s + 1), LC(MH, 3 * s + 2)};
+    // this lane's block: the body's own (I about the origin, hat(m h), m 1)
+    // plus its children's
+    float X[9], pa[6];
+    {
+      float Io[9];
+      Io[0] = LC(IO, 6 * s); Io[1] = LC(IO, 6 * s + 1); Io[2] = LC(IO, 6 * s + 2);
+      Io[4] = LC(IO, 6 * s + 3); Io[5] = LC(IO, 6 * s + 4); Io[8] = LC(IO, 6 * s + 5);
+      symmetrize(Io);
+      const float Hc[9] = {0.f, -h[2], h[1], h[2], 0.f, -h[0], -h[1], h[0], 0.f};
+      const float Mc[9] = {m, 0.f, 0.f, 0.f, m, 0.f, 0.f, 0.f, m};
+#pragma unroll
+      for (int i = 0; i < 9; ++i) X[i] = blk == 0 ? Io[i] : (blk == 1 ? Hc[i] : Mc[i]);
+    }
+    if (HAS_CHILD[s] || !UNIFORM) {
+#pragma unroll
+      for (int i = 0; i < 9; ++i) X[i] += cX[s + 1][i];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) pa[i] = pA[s][i] + cP[s + 1][i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) pa[i] = pA[s][i];
+    }
+
+    // U = IA [a; 0]: I a from role 0, H^T a from role 1; d = a.U + armature,
+    // u = tau - a.pA
+    float Xa[3], Xta[3];
+    if (k >= 0) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        Xa[i] = X[3 * i + k];
+        Xta[i] = X[3 * k + i];
+      }
+    } else {
+      const float a[3] = {LC(AXIS, 3 * s), LC(AXIS, 3 * s + 1), LC(AXIS, 3 * s + 2)};
+      mv3(X, a, Xa);
+      mtv3(X, a, Xta);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      Uw[s][i] = __shfl_sync(0xffffffffu, Xa[i], lead);
+      Uv[s][i] = __shfl_sync(0xffffffffu, Xta[i], lead + 1);
+    }
+    float adotU, adotp;
+    if (k >= 0) {
+      adotU = Uw[s][k];
+      adotp = pa[k];
+    } else {
+      const float a[3] = {LC(AXIS, 3 * s), LC(AXIS, 3 * s + 1), LC(AXIS, 3 * s + 2)};
+      adotU = a[0] * Uw[s][0] + a[1] * Uw[s][1] + a[2] * Uw[s][2];
+      adotp = a[0] * pa[0] + a[1] * pa[1] + a[2] * pa[2];
+    }
+    const float d = adotU + LC(ARM, s);
+    u[s] = tt[s] - adotp;
+    inv_d[s] = 1.0f / d;
+    const float idg = inv_d[s];
+
+    // this lane's block of Ia = IA - U U^T / d: I - Uw Uw^T, H - Uw Uv^T,
+    // M - Uv Uv^T (over d)
+    float Xn[9];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float lr = blk == 2 ? Uv[s][r] : Uw[s][r];
+        const float rc_ = blk == 0 ? Uw[s][c] : Uv[s][c];
+        Xn[3 * r + c] = X[3 * r + c] - lr * rc_ * idg;
+      }
+
+    // pa2 = pA + Ia c + U u / d; this lane's share of Ia c: [I cw; 0],
+    // [H cv; H^T cw] or [0; M cv], summed over the branch's lanes
+    float part[6];
+    {
+      float y1[3], y2[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        y1[i] = role == 0 ? cb[s][i] : (role == 1 ? cb[s][3 + i] : 0.f);
+        y2[i] = role == 1 ? cb[s][i] : (role == 2 ? cb[s][3 + i] : 0.f);
+      }
+      mv3(Xn, y1, part);
+      mtv3(Xn, y2, part + 3);
+    }
+#pragma unroll
+    for (int mk = 1; mk < LPB; mk <<= 1)
+#pragma unroll
+      for (int i = 0; i < 6; ++i) part[i] += __shfl_xor_sync(0xffffffffu, part[i], mk);
+    float pa2[6];
+    {
+      const float uid = u[s] * idg;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        pa2[i] = pa[i] + part[i] + Uw[s][i] * uid;
+        pa2[3 + i] = pa[3 + i] + part[3 + i] + Uv[s][i] * uid;
+      }
+    }
+
+    // to the parent: each lane rotates its block by E; then the shift by p,
+    // H' = H~ + p^ M~ and I' = I~ + (p^ H~^T)^T + p^ H'^T, with M~ and H~
+    // from their lanes
+    const float jp[3] = {LC(JPOS, 3 * s), LC(JPOS, 3 * s + 1), LC(JPOS, 3 * s + 2)};
+    float Xt[9], Ht[9], Mt[9], Hp[9], A[9], Bm[9], Xp[9], fp[6];
+    rot_sandwich(k, rc[s], rs[s], Eup[s], Xn, Xt);
+    // the symmetric blocks' lower triangles from their upper ones
+    Xt[3] = blk == 1 ? Xt[3] : Xt[1];
+    Xt[6] = blk == 1 ? Xt[6] : Xt[2];
+    Xt[7] = blk == 1 ? Xt[7] : Xt[5];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      Ht[i] = __shfl_sync(0xffffffffu, Xt[i], lead + 1);
+      Mt[i] = __shfl_sync(0xffffffffu, Xt[i], lead + 2);
+    }
+    hat_mm3(jp, Mt, Hp);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) Hp[i] += Ht[i];
+    hat_mmt3(jp, Ht, A);
+    hat_mmt3(jp, Hp, Bm);
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = r; c < 3; ++c) {
+        const float ip = Xt[3 * r + c] + A[3 * c + r] + Bm[3 * r + c];
+        Xp[3 * r + c] = blk == 0 ? ip : (blk == 1 ? Hp[3 * r + c] : Xt[3 * r + c]);
+        if (c > r) Xp[3 * c + r] = blk == 0 ? ip : (blk == 1 ? Hp[3 * c + r] : Xt[3 * c + r]);
+      }
+    inv_xform_force(k, rc[s], rs[s], Eup[s], jp, pa2, fp);
+    const bool first = UNIFORM && FIRST[s];
+    give<9>(cX, s, ps[s], first, Xp);
+    give<6>(cP, s, ps[s], first, fp);
+  }
+
+  // ---- the base: each block and the bias force summed over the group's
+  // branches (a lane with the lanes of its role), then every lane takes the
+  // blocks from its branch's lanes
+#pragma unroll
+  for (int m = LPB; m < G; m <<= 1) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) cX[0][i] += __shfl_xor_sync(0xffffffffu, cX[0][i], m);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) cP[0][i] += __shfl_xor_sync(0xffffffffu, cP[0][i], m);
+  }
+  float ci[9], ch[9], cm[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    ci[i] = __shfl_sync(0xffffffffu, cX[0][i], lead);
+    ch[i] = __shfl_sync(0xffffffffu, cX[0][i], lead + 1);
+    cm[i] = __shfl_sync(0xffffffffu, cX[0][i], lead + 2);
+  }
+  const float* cp = cP[0];
+#else
   // ---- inward: articulated inertias as blocks (I, H, M), children into parents
   float cI[D + 1][9], cH[D + 1][9], cM[D + 1][9], cP[D + 1][6];
   if (!UNIFORM) {
@@ -785,8 +972,7 @@ __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, flo
     give<6>(cP, s, ps[s], first, fp);
   }
 
-  // ---- the base: the branches' sums over the group, its spheres' over all
-  // lanes; every lane then holds the same 6x6 system and solves it
+  // ---- the base: the branches' sums over the group
 #pragma unroll
   for (int m = LPB; m < G; m <<= 1) {
 #pragma unroll
@@ -802,6 +988,13 @@ __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, flo
 #pragma unroll
     for (int i = 0; i < 6; ++i) cP[0][i] += __shfl_xor_sync(0xffffffffu, cP[0][i], m);
   }
+  const float* ci = cI[0];
+  const float* ch = cH[0];
+  const float* cm = cM[0];
+  const float* cp = cP[0];
+#endif
+  // its spheres' sums over all lanes; every lane then holds the same 6x6
+  // system and solves it
 #pragma unroll
   for (int m = 1; m < G; m <<= 1)
 #pragma unroll
@@ -826,13 +1019,10 @@ __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, flo
     mv3(E0b, wb + 3, f_b);
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      rhs[i] = -(pa[i] - hxg[i] - n_b[i] + cP[0][i]);
-      rhs[3 + i] = -(pa[3 + i] - m0 * g_b[i] - f_b[i] + cP[0][3 + i]);
+      rhs[i] = -(pa[i] - hxg[i] - n_b[i] + cp[i]);
+      rhs[3 + i] = -(pa[3 + i] - m0 * g_b[i] - f_b[i] + cp[3 + i]);
     }
     float A11[9], A12[9], A22[9];
-    const float* ci = cI[0];
-    const float* ch = cH[0];
-    const float* cm = cM[0];
     A11[0] = I0[0] + ci[0]; A11[1] = I0[1] + ci[1]; A11[2] = I0[2] + ci[2];
     A11[4] = I0[4] + ci[4]; A11[5] = I0[5] + ci[5]; A11[8] = I0[8] + ci[8];
     symmetrize(A11);
@@ -1109,7 +1299,7 @@ extern "C" int lgc_fused_control_step(const float* pos, const float* quat, const
 
 // The launch shape for B envs: out = {G, block, grid, static shared bytes,
 // dynamic shared bytes, resident blocks per SM, registers per thread,
-// local-memory bytes per thread}
+// local-memory bytes per thread, lanes per branch}
 extern "C" int lgc_fused_launch_info(int B, int* out) {
   cudaError_t status = allow_shared_memory();
   if (status != cudaSuccess) return static_cast<int>(status);
@@ -1128,6 +1318,7 @@ extern "C" int lgc_fused_launch_info(int B, int* out) {
   out[5] = resident;
   out[6] = attr.numRegs;
   out[7] = static_cast<int>(attr.localSizeBytes);
+  out[8] = LPB;
   return 0;
 }
 

@@ -764,15 +764,29 @@ def _ilist(x):
     return "{" + ", ".join(str(int(v)) for v in np.asarray(x).ravel()) + "}"
 
 
+# A tree whose branches are deeper than this takes the layout for deep chains
+# (four lanes a branch, the inward pass split by block).  The quadrupeds'
+# legs are 3 deep; the bipeds' (Cassie, G1) 6.
+DEEP_CHAIN_DEPTH = 3
+
+
 @functools.lru_cache(maxsize=None)
 def lanes_per_branch_for(spec: FusedSpec) -> int:
-    """The kernel's layout for a spec up to PAIR_MAX_ENVS envs: a pair of
-    lanes of a warp per branch of the tree (both walk the branch, each takes
-    half of a body's spheres) wherever the pairs fit a warp, else one lane
-    per branch.  On an NVIDIA H100 80GB HBM3 at a 700 W power limit the pair
-    is the faster for the quadruped at the 4096 envs every config runs and
-    at MPPI's 128 rollouts (PERF.md section 6)."""
-    n_branches = len(lane_plan_lib.branches([int(p) for p in spec.parent]))
+    """The kernel's layout for a spec up to PAIR_MAX_ENVS envs, from the
+    tree's shape alone: four lanes of a warp per branch where a branch is
+    deeper than DEEP_CHAIN_DEPTH and they fit a warp (all walk the branch,
+    each takes a quarter of a body's spheres and one block of the inward
+    pass), else a pair of lanes per branch wherever the pairs fit a warp
+    (both walk the branch, each takes half of a body's spheres), else one
+    lane per branch.  On an NVIDIA H100 80GB HBM3 at a 700 W power limit the
+    pair is the faster for the quadruped at the 4096 envs every config runs
+    and at MPPI's 128 rollouts, and four lanes for the bipeds' chains of 6
+    at 4096 envs (PERF.md section 6)."""
+    per_branch = lane_plan_lib.branches([int(p) for p in spec.parent])
+    n_branches = len(per_branch)
+    depth = max((len(b) for b in per_branch), default=0)
+    if depth > DEEP_CHAIN_DEPTH and 4 * n_branches <= lane_plan_lib.MAX_LANES:
+        return 4
     return 2 if 2 * n_branches <= lane_plan_lib.MAX_LANES else 1
 
 
@@ -944,16 +958,16 @@ def load_kernel(spec: FusedSpec, batch: int) -> FusedKernel:
 
 
 def launch_info(kernel: FusedKernel, B: int) -> dict:
-    """The launch shape of a built kernel for B envs: lanes per env, block,
-    grid, shared memory, and the resident blocks per SM that
+    """The launch shape of a built kernel for B envs: lanes per env and per
+    branch, block, grid, shared memory, and the resident blocks per SM that
     cudaOccupancyMaxActiveBlocksPerMultiprocessor reports."""
-    out = (ctypes.c_int * 8)()
+    names = ("lanes_per_env", "block", "grid", "static_shared_bytes", "dynamic_shared_bytes",
+             "resident_blocks_per_sm", "registers", "local_bytes_per_thread", "lanes_per_branch")
+    out = (ctypes.c_int * len(names))()
     err = kernel.lib.lgc_fused_launch_info(B, out)
     if err != 0:
         raise RuntimeError("fused control-step launch info failed: "
                            + kernel.lib.lgc_cuda_error_string(err).decode())
-    names = ("lanes_per_env", "block", "grid", "static_shared_bytes", "dynamic_shared_bytes",
-             "resident_blocks_per_sm", "registers", "local_bytes_per_thread")
     return dict(zip(names, out))
 
 

@@ -6,11 +6,15 @@ of a warp.  The tree splits at the base: every child of the base starts a
 *branch* (the child and all its descendants), and the branches share nothing
 until the base.  A lane owns one branch and walks its bodies through `depth`
 *slots*, parent before child; a shorter branch is padded with masked slots
-that add exactly zero.  With `lanes_per_branch` 2 a pair of lanes carries one
-branch: both walk its chain, each takes every second collision sphere of a
-body, and the pair sums the contact wrenches.  The base's own spheres are
-dealt round over all G lanes.  G is the number of branches times
-`lanes_per_branch`, rounded up to a power of two (the lanes combine by
+that add exactly zero.  With `lanes_per_branch` L of 2 or 4, L lanes carry
+one branch: all walk its chain outward, each takes every L-th collision
+sphere of a body, and they sum the contact wrenches.  At L = 4, the layout
+for deep chains, the lanes of a branch also split the inward pass (`split`):
+lanes 0, 1 and 2 of a branch carry the 3x3 blocks I, H and M of the
+articulated inertia [[I, H], [H^T, M]] (lane 3 repeats M and adds nothing),
+and exchange blocks by shuffles where a step needs another lane's.
+The base's own spheres are dealt round over all G lanes.  G is the number
+of branches times L, rounded up to a power of two (the lanes combine by
 butterfly shuffles); the extra lanes are masked throughout.
 
 A model constant that every lane shares at a slot (on a quadruped: the joint
@@ -37,6 +41,7 @@ SLOT_FIELDS = (("AXIS", 3), ("JROT", 9), ("JPOS", 3), ("MASS", 1), ("MH", 3), ("
 # per-sphere-entry constants
 SPHERE_FIELDS = (("GPOS", 3), ("GRAD", 1))
 SYM6 = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))   # a symmetric 3x3 as 6 entries
+LANES_PER_BRANCH = (1, 2, 4)
 
 
 class Field(NamedTuple):
@@ -71,6 +76,11 @@ class LanePlan(NamedTuple):
     ftab: np.ndarray        # (rows, G) float64 lane table
     itab: np.ndarray        # (rows, G) int lane table: jload, jstore, link, pslot
     irow: dict              # name -> first row in itab
+
+    @property
+    def split(self) -> bool:
+        """The lanes of a branch split the inward pass by block (L = 4)."""
+        return self.lanes_per_branch == 4
 
     @property
     def n_entries(self) -> int:
@@ -120,9 +130,10 @@ def _origin_inertia(mass, com, icom):
 
 def lane_plan(spec, lanes_per_branch: int = 1) -> LanePlan:
     """Split `spec`'s tree over the lanes of a group.  `spec` is a FusedSpec
-    (any object with its fields); `lanes_per_branch` is 1 or 2."""
-    if lanes_per_branch not in (1, 2):
-        raise ValueError(f"lanes_per_branch must be 1 or 2, got {lanes_per_branch}")
+    (any object with its fields); `lanes_per_branch` is 1, 2 or 4."""
+    if lanes_per_branch not in LANES_PER_BRANCH:
+        raise ValueError(f"lanes_per_branch must be one of {LANES_PER_BRANCH}, "
+                         f"got {lanes_per_branch}")
     L = lanes_per_branch
     parent = [int(p) for p in spec.parent]
     nb = len(parent)
@@ -160,7 +171,7 @@ def lane_plan(spec, lanes_per_branch: int = 1) -> LanePlan:
     jstore = np.where((body >= 0) & (sub_of[None, :] == 0), body - 1, -1)
 
     # ---- sphere entries: a slot's spheres in geom order, every L-th to a
-    # lane of the pair; then the base's, dealt round over all G lanes
+    # lane of the branch; then the base's, dealt round over all G lanes
     geom_body = [int(b) for b in spec.geom_body]
     geoms_of = {i: [g for g, b in enumerate(geom_body) if b == i] for i in range(nb)}
     per_slot = [[[] for _ in range(G)] for _ in range(D)]
@@ -272,6 +283,7 @@ def header_lines(plan: LanePlan) -> list:
         "// lane plan (ops/lane_plan.py): G lanes of a warp per env, `depth` slots per lane",
         f"#define LGC_P_G {plan.G}",
         f"#define LGC_P_LPB {plan.lanes_per_branch}",
+        f"#define LGC_P_SPLIT {int(plan.split)}",
         f"#define LGC_P_DEPTH {D}",
         f"#define LGC_P_PSLOT {_ints(plan.pslot_level)}",
         f"#define LGC_P_PSLOT_UNIFORM {int(plan.pslot_uniform)}",

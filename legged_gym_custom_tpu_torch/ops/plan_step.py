@@ -8,9 +8,11 @@ table), turns a joint about a coordinate axis as a planar rotation (the
 matrix holds a literal 1 and zeros, which fold), carries articulated inertias
 as three 3x3 blocks (two of them symmetric, 6 entries each) and moves them to
 the parent by rotating the blocks and shifting them with cross products; the
-lanes meet only at the base, by butterfly sums.  The kernel cannot run without
-a card; this can, so a wrong index in the plan's tables shows here, against
-the plain version.
+lanes meet at the base, by butterfly sums, and in the layout for deep chains
+(`LanePlan.split`) also at every slot of the inward pass, where the lanes of
+a branch each carry one of the blocks (`_inward_split`).  The kernel cannot
+run without a card; this can, so a wrong index in the plan's tables shows
+here, against the plain version.
 
 What every lane of a group would compute alike is computed once here: a sum
 of the butterfly is formed once and shared by the lanes that hold it, and the
@@ -195,13 +197,9 @@ def _substep(spec, plan: LanePlan, base, q, qd, tau, mu, base_inertia, terrain, 
             wr[g][s] = summed[g]
 
     # ---- bias forces and joint torques, then the inward pass
-    U = [[None] * D for _ in range(G)]
-    inv_d = [[None] * D for _ in range(G)]
-    u = [[None] * D for _ in range(G)]
-    part = []     # per lane: what its branch adds to the base, 21 + 6 numbers
+    pA = [[None] * D for _ in range(G)]
+    tau_total = [[None] * D for _ in range(G)]
     for g in range(G):
-        pA = [None] * D
-        tau_total = [None] * D
         for s in range(D):
             m = plan.const("MASS", s, 0, g)
             h = _consts(plan, "MH", s, g, 3)
@@ -211,7 +209,7 @@ def _substep(spec, plan: LanePlan, base, q, qd, tau, mu, base_inertia, terrain, 
             hxg = _cross(h, g_b)
             n_b = _mv(E0[g][s], wr[g][s][0:3])
             f_b = _mv(E0[g][s], wr[g][s][3:6])
-            pA[s] = [_sub(_sub(pa[k], hxg[k]), n_b[k]) for k in range(3)] + [
+            pA[g][s] = [_sub(_sub(pa[k], hxg[k]), n_b[k]) for k in range(3)] + [
                 _sub(_sub(pa[3 + k], _mul(m, g_b[k])), f_b[k]) for k in range(3)]
             qj, qdj = q[g][s], qd[g][s]
             below = torch.clamp(qj - plan.const("LO", s, 0, g), max=0.0)
@@ -223,75 +221,18 @@ def _substep(spec, plan: LanePlan, base, q, qd, tau, mu, base_inertia, terrain, 
             if not spec.fl_dqd:
                 t = _sub(t, _mul(plan.const("FL", s, 0, g),
                                  torch.tanh(qdj * (1.0 / spec.fl_eps))))
-            tau_total[s] = t
-
-        # children's blocks (I 6, H 9, M 6) and forces, by slot; -1 is the base
-        IAc = {t: None for t in range(-1, D)}
-        pAc = {t: None for t in range(-1, D)}
-        for s in range(D - 1, -1, -1):
-            m = plan.const("MASS", s, 0, g)
-            h = _consts(plan, "MH", s, g, 3)
-            I6 = _consts(plan, "IO", s, g, 6)
-            H = _hat(h)
-            M6 = [m, 0.0, 0.0, m, 0.0, m]
-            pa = pA[s]
-            if IAc[s] is not None:
-                cI, cH, cM = IAc[s]
-                I6 = [_add(x, y) for x, y in zip(I6, cI)]
-                H = [[_add(H[r][c], cH[r][c]) for c in range(3)] for r in range(3)]
-                M6 = [_add(x, y) for x, y in zip(M6, cM)]
-                pa = _vadd(pa, pAc[s])
-            a = _consts(plan, "AXIS", s, g, 3)
-            Ib, Mb = _sym(I6), _sym(M6)
-            Uw, Uv = _mv(Ib, a), _mtv(H, a)
-            d = _add(_dot(a, Uw), plan.const("ARM", s, 0, g))
-            u[g][s] = _sub(tau_total[s], _dot(a, pa[0:3]))
-            inv_d[g][s] = 1.0 / d
-            U[g][s] = Uw + Uv
-            idg = inv_d[g][s]
-            In = _sym([_sub(Ib[r][c], _mul(_mul(Uw[r], Uw[c]), idg)) for r, c in SYM6])
-            Hn = [[_sub(H[r][c], _mul(_mul(Uw[r], Uv[c]), idg)) for c in range(3)]
-                  for r in range(3)]
-            Mn = _sym([_sub(Mb[r][c], _mul(_mul(Uv[r], Uv[c]), idg)) for r, c in SYM6])
-            cw, cv = cb[g][s][0:3], cb[g][s][3:6]
-            uid = u[g][s] * idg
-            top = _vadd(_mv(In, cw), _mv(Hn, cv))
-            bot = _vadd(_mtv(Hn, cw), _mv(Mn, cv))
-            pa2 = [_add(_add(pa[k], top[k]), _mul(Uw[k], uid)) for k in range(3)] + [
-                _add(_add(pa[3 + k], bot[k]), _mul(Uv[k], uid)) for k in range(3)]
-            # to the parent: rotate the blocks by E, then shift them by p
-            E = Eup[g][s]
-            jp = _consts(plan, "JPOS", s, g, 3)
-            px = _hat(jp)
-            It = _sandwich(E, In, True)
-            Ht = _sandwich(E, Hn, False)
-            Mt = _sandwich(E, Mn, True)
-            Hp = [[_add(Ht[r][c], _dot(px[r], [Mt[0][c], Mt[1][c], Mt[2][c]]))
-                   for c in range(3)] for r in range(3)]
-            # I' = I~ + (p^ H~^T)^T + p^ H'^T, its upper triangle
-            Ip6 = [_add(_add(It[r][c], _dot(px[c], Ht[r])), _dot(px[r], Hp[c])) for r, c in SYM6]
-            fp = _inv_xform_force(E, jp, pa2)
-            ps = int(pslot[s, g])
-            if IAc[ps] is None:
-                IAc[ps], pAc[ps] = (Ip6, Hp, _sym6(Mt)), fp
-            else:
-                cI, cH, cM = IAc[ps]
-                IAc[ps] = ([_add(x, y) for x, y in zip(cI, Ip6)],
-                           [[_add(cH[r][c], Hp[r][c]) for c in range(3)] for r in range(3)],
-                           [_add(x, y) for x, y in zip(cM, _sym6(Mt))])
-                pAc[ps] = _vadd(pAc[ps], fp)
-        cI, cH, cM = IAc[-1]
-        part.append(list(cI) + [x for row in cH for x in row] + list(cM) + list(pAc[-1]))
+            tau_total[g][s] = t
+    inward = _inward_split if plan.split else _inward_lanes
+    U, inv_d, u, P = inward(plan, pA, tau_total, cb, Eup)
 
     # ---- the base: the branches' sums, its own spheres over all lanes, the solve
-    part = _butterfly(part, _masks(L, G))
     wb = _butterfly(wb, _masks(1, G))
     m0, h0, I0 = base_inertia
     pa0 = _crf(v0, _inertia_mul(m0, h0, I0, v0))
     g_b = _mv(E0b, grav)
     hxg = _cross(h0, g_b)
     # every lane of the group holds these sums and would solve alike: once here
-    P, w = part[0], wb[0]
+    w = wb[0]
     Ib = _sym([_add(I0[r][c], P[i]) for i, (r, c) in enumerate(SYM6)])
     hx = _hat(h0)
     H = [[_add(hx[r][c], P[6 + 3 * r + c]) for c in range(3)] for r in range(3)]
@@ -345,6 +286,156 @@ def _substep(spec, plan: LanePlan, base, q, qd, tau, mu, base_inertia, terrain, 
                            min=1e-9)
     quat = [x * qn for x in quat]
     return dict(pos=pos, quat=quat, lin=lin, ang=ang), q_new, qd_new
+
+
+def _inward_lanes(plan: LanePlan, pA, tau_total, cb, Eup):
+    """The inward pass with each lane carrying its branch's whole
+    articulated inertia (L = 1, 2).  pA, tau_total, cb, Eup: [lane][slot].
+    Returns U, inv_d, u ([lane][slot]) and the group's sums at the base:
+    I (6 entries), H (9), M (6) and the bias force (6)."""
+    G, D, L = plan.G, plan.depth, plan.lanes_per_branch
+    pslot = plan.itab[plan.irow["PSLOT"]:plan.irow["PSLOT"] + D]
+    U = [[None] * D for _ in range(G)]
+    inv_d = [[None] * D for _ in range(G)]
+    u = [[None] * D for _ in range(G)]
+    part = []     # per lane: what its branch adds to the base, 21 + 6 numbers
+    for g in range(G):
+        # children's blocks (I 6, H 9, M 6) and forces, by slot; -1 is the base
+        IAc = {t: None for t in range(-1, D)}
+        pAc = {t: None for t in range(-1, D)}
+        for s in range(D - 1, -1, -1):
+            m = plan.const("MASS", s, 0, g)
+            h = _consts(plan, "MH", s, g, 3)
+            I6 = _consts(plan, "IO", s, g, 6)
+            H = _hat(h)
+            M6 = [m, 0.0, 0.0, m, 0.0, m]
+            pa = pA[g][s]
+            if IAc[s] is not None:
+                cI, cH, cM = IAc[s]
+                I6 = [_add(x, y) for x, y in zip(I6, cI)]
+                H = [[_add(H[r][c], cH[r][c]) for c in range(3)] for r in range(3)]
+                M6 = [_add(x, y) for x, y in zip(M6, cM)]
+                pa = _vadd(pa, pAc[s])
+            a = _consts(plan, "AXIS", s, g, 3)
+            Ib, Mb = _sym(I6), _sym(M6)
+            Uw, Uv = _mv(Ib, a), _mtv(H, a)
+            d = _add(_dot(a, Uw), plan.const("ARM", s, 0, g))
+            u[g][s] = _sub(tau_total[g][s], _dot(a, pa[0:3]))
+            inv_d[g][s] = 1.0 / d
+            U[g][s] = Uw + Uv
+            idg = inv_d[g][s]
+            In = _sym([_sub(Ib[r][c], _mul(_mul(Uw[r], Uw[c]), idg)) for r, c in SYM6])
+            Hn = [[_sub(H[r][c], _mul(_mul(Uw[r], Uv[c]), idg)) for c in range(3)]
+                  for r in range(3)]
+            Mn = _sym([_sub(Mb[r][c], _mul(_mul(Uv[r], Uv[c]), idg)) for r, c in SYM6])
+            cw, cv = cb[g][s][0:3], cb[g][s][3:6]
+            uid = u[g][s] * idg
+            top = _vadd(_mv(In, cw), _mv(Hn, cv))
+            bot = _vadd(_mtv(Hn, cw), _mv(Mn, cv))
+            pa2 = [_add(_add(pa[k], top[k]), _mul(Uw[k], uid)) for k in range(3)] + [
+                _add(_add(pa[3 + k], bot[k]), _mul(Uv[k], uid)) for k in range(3)]
+            # to the parent: rotate the blocks by E, then shift them by p
+            E = Eup[g][s]
+            jp = _consts(plan, "JPOS", s, g, 3)
+            px = _hat(jp)
+            It = _sandwich(E, In, True)
+            Ht = _sandwich(E, Hn, False)
+            Mt = _sandwich(E, Mn, True)
+            Hp = [[_add(Ht[r][c], _dot(px[r], [Mt[0][c], Mt[1][c], Mt[2][c]]))
+                   for c in range(3)] for r in range(3)]
+            # I' = I~ + (p^ H~^T)^T + p^ H'^T, its upper triangle
+            Ip6 = [_add(_add(It[r][c], _dot(px[c], Ht[r])), _dot(px[r], Hp[c])) for r, c in SYM6]
+            fp = _inv_xform_force(E, jp, pa2)
+            ps = int(pslot[s, g])
+            if IAc[ps] is None:
+                IAc[ps], pAc[ps] = (Ip6, Hp, _sym6(Mt)), fp
+            else:
+                cI, cH, cM = IAc[ps]
+                IAc[ps] = ([_add(x, y) for x, y in zip(cI, Ip6)],
+                           [[_add(cH[r][c], Hp[r][c]) for c in range(3)] for r in range(3)],
+                           [_add(x, y) for x, y in zip(cM, _sym6(Mt))])
+                pAc[ps] = _vadd(pAc[ps], fp)
+        cI, cH, cM = IAc[-1]
+        part.append(list(cI) + [x for row in cH for x in row] + list(cM) + list(pAc[-1]))
+    return U, inv_d, u, _butterfly(part, _masks(L, G))[0]
+
+
+def _inward_split(plan: LanePlan, pA, tau_total, cb, Eup):
+    """The inward pass of the layout for deep chains (L = 4), as the kernel
+    splits it: lanes 0, 1 and 2 of a branch carry the blocks I, H and M of
+    the articulated inertia (lane 3 repeats M and shares nothing), U takes
+    I a and H^T a from the I and H lanes, the bias force sums the lanes'
+    shares of Ia c by butterfly, and the shift to the parent takes M~ and H~
+    from their lanes.  What the four lanes compute alike from the same
+    inputs (U, d, u, the bias force, the shift's products) is computed once
+    a branch from its first lane's values.  Arguments and result as
+    `_inward_lanes`."""
+    G, D, L = plan.G, plan.depth, plan.lanes_per_branch
+    pslot = plan.itab[plan.irow["PSLOT"]:plan.irow["PSLOT"] + D]
+    block = lambda g: min(g % L, 2)     # 0 I, 1 H, 2 M (the fourth lane: M again)
+    U = [[None] * D for _ in range(G)]
+    inv_d = [[None] * D for _ in range(G)]
+    u = [[None] * D for _ in range(G)]
+    Xc = [{} for _ in range(G)]   # per lane: slot -> its block summed over the slot's children
+    Pc = [{} for _ in range(G)]   # per lane: slot -> the children's bias forces; -1 the base
+    zero3 = [0.0, 0.0, 0.0]
+
+    def add3(A, B):
+        return [[_add(A[r][c], B[r][c]) for c in range(3)] for r in range(3)]
+
+    for s in range(D - 1, -1, -1):
+        X = []
+        for g in range(G):     # each lane's own block: its body's plus its children's
+            m = plan.const("MASS", s, 0, g)
+            own = (_sym(_consts(plan, "IO", s, g, 6)), _hat(_consts(plan, "MH", s, g, 3)),
+                   [[m if r == c else 0.0 for c in range(3)] for r in range(3)])[block(g)]
+            X.append(own if s not in Xc[g] else add3(own, Xc[g][s]))
+        for g0 in range(0, G, L):
+            lanes = range(g0, g0 + L)
+            a = _consts(plan, "AXIS", s, g0, 3)
+            pa = pA[g0][s] if s not in Pc[g0] else _vadd(pA[g0][s], Pc[g0][s])
+            Uw, Uv = _mv(X[g0], a), _mtv(X[g0 + 1], a)
+            idg = 1.0 / _add(_dot(a, Uw), plan.const("ARM", s, 0, g0))
+            u_s = _sub(tau_total[g0][s], _dot(a, pa[0:3]))
+            Xn = {}
+            for g in lanes:
+                lv, rv = (Uv if block(g) == 2 else Uw), (Uw if block(g) == 0 else Uv)
+                Xn[g] = [[_sub(X[g][r][c], _mul(_mul(lv[r], rv[c]), idg)) for c in range(3)]
+                         for r in range(3)]
+            cw, cv = cb[g0][s][0:3], cb[g0][s][3:6]
+            shares = []
+            for g in lanes:     # [I cw; 0], [H cv; H^T cw], [0; M cv], nothing
+                role = g % L
+                top = _mv(Xn[g], cw) if role == 0 else _mv(Xn[g], cv) if role == 1 else zero3
+                bot = _mtv(Xn[g], cw) if role == 1 else _mtv(Xn[g], cv) if role == 2 else zero3
+                shares.append(top + bot)
+            iac = _butterfly(shares, _masks(1, L))[0]
+            uid = u_s * idg
+            pa2 = [_add(_add(pa[k], iac[k]), _mul(Uw[k], uid)) for k in range(3)] + [
+                _add(_add(pa[3 + k], iac[3 + k]), _mul(Uv[k], uid)) for k in range(3)]
+            Xt = {g: _sandwich(Eup[g][s], Xn[g], block(g) != 1) for g in lanes}
+            Ht, Mt = Xt[g0 + 1], Xt[g0 + 2]
+            jp = _consts(plan, "JPOS", s, g0, 3)
+            px = _hat(jp)
+            Hp = [[_add(Ht[r][c], _dot(px[r], [Mt[0][c], Mt[1][c], Mt[2][c]]))
+                   for c in range(3)] for r in range(3)]
+            It = Xt[g0]
+            Ip = _sym([_add(_add(It[r][c], _dot(px[c], Ht[r])), _dot(px[r], Hp[c]))
+                       for r, c in SYM6])
+            fp = _inv_xform_force(Eup[g0][s], jp, pa2)
+            for g in lanes:
+                U[g][s], inv_d[g][s], u[g][s] = Uw + Uv, idg, u_s
+                Xp = (Ip, Hp, Xt[g])[block(g)]
+                ps = int(pslot[s, g])
+                Xc[g][ps] = Xp if ps not in Xc[g] else add3(Xc[g][ps], Xp)
+                Pc[g][ps] = fp if ps not in Pc[g] else _vadd(Pc[g][ps], fp)
+    # the base: each lane's block and force summed over the group's branches,
+    # then every lane takes the blocks from its branch's lanes
+    flat = [[x for row in Xc[g][-1] for x in row] + list(Pc[g][-1]) for g in range(G)]
+    flat = _butterfly(flat, _masks(L, G))
+    I9, H9, M9 = flat[0][:9], flat[1][:9], flat[2][:9]
+    sym6 = lambda v9: [v9[3 * r + c] for r, c in SYM6]
+    return U, inv_d, u, sym6(I9) + H9 + sym6(M9) + flat[0][9:15]
 
 
 def plan_control_step(spec, plan: LanePlan, state, actions, dr, terrain=None):

@@ -36,12 +36,20 @@ inline std::barrier<>* lgc_barrier = nullptr;
 
 inline void __syncthreads() { lgc_barrier->arrive_and_wait(); }
 inline void __syncwarp() { lgc_barrier->arrive_and_wait(); }
-inline float __shfl_xor_sync(unsigned, float value, int lane_mask) {
+// every thread of the block posts its value, then reads the one its shuffle
+// names: lane `threadIdx.x ^ lane_mask`, or lane `src_lane` of its own warp
+inline float lgc_shuffle(float value, int from) {
   lgc_exchange[threadIdx.x] = value;
   lgc_barrier->arrive_and_wait();
-  const float other = lgc_exchange[threadIdx.x ^ lane_mask];
+  const float other = lgc_exchange[from];
   lgc_barrier->arrive_and_wait();
   return other;
+}
+inline float __shfl_xor_sync(unsigned, float value, int lane_mask) {
+  return lgc_shuffle(value, threadIdx.x ^ lane_mask);
+}
+inline float __shfl_sync(unsigned, float value, int src_lane) {
+  return lgc_shuffle(value, (threadIdx.x & ~31) + (src_lane & 31));
 }
 
 template <class Kernel, class... Args>

@@ -34,7 +34,8 @@ TOL = dict(base_pos=(1e-4, 1e-4), base_quat=(1e-4, 1e-4), lin_vel=(1e-3, 1e-3),
            link_forces=(0.05, 1e-3), torques=(1e-2, 1e-3))
 HF_TOL = dict(TOL, dof_vel=(2e-2, 1e-3))
 K, HS = 8, 0.1
-# model, spec options, layout of the build, envs (8 or 4 a block: the last one ragged)
+# model, spec options, layout of the build, envs (8, 4, 2 a block at G = 4, 8, 16: the
+# last one ragged)
 CASES = {
     "go2-plane-P-tanh": ("go2", dict(), dict(), 19),
     "go2-plane-P-stiction-pairs": ("go2", dict(implicit_stiction=True),
@@ -45,14 +46,25 @@ CASES = {
     "tree-plane-P-tanh": ("tree", dict(), dict(), 13),
     "tree-hf-T-stiction": ("tree", dict(hf_K=K, hf_hs=HS, control_type="T",
                                         implicit_stiction=True), dict(), 9),
+    # the split inward pass on trees the rule gives pairs: Go2 (G = 16, the
+    # build chip_smoke.py times against the pair) and the test tree, whose
+    # parents differ by lane (G = 16, an empty group of four)
+    "go2-plane-P-tanh-deep": ("go2", dict(), dict(lanes_per_branch=4), 7),
+    "tree-hf-T-stiction-deep": ("tree", dict(hf_K=K, hf_hs=HS, control_type="T",
+                                             implicit_stiction=True),
+                                dict(lanes_per_branch=4), 5),
     # the other robots' builds: ANYmal's one-tick 'T' spec (plane and
-    # heightfield), the bipeds at a pair of lanes a leg (G = 4)
+    # heightfield), the bipeds at a pair of lanes a leg (G = 4) and in the
+    # layout for deep chains, four lanes a leg splitting the inward pass by
+    # block (G = 8)
     "anymal-plane-T-one-tick-pairs": ("anymal_c_flat", dict(control_type="T", one_tick=True),
                                       dict(lanes_per_branch=2), 6),
     "anymal-hf-T-one-tick": ("anymal_c_flat", dict(hf_K=K, hf_hs=HS, control_type="T",
                                                    one_tick=True), dict(), 5),
     "cassie-hf-P-tanh-pairs": ("cassie", dict(hf_K=K, hf_hs=HS), dict(lanes_per_branch=2), 11),
     "g1-plane-P-tanh-pairs": ("g1", dict(), dict(lanes_per_branch=2), 13),
+    "cassie-hf-P-tanh-deep": ("cassie", dict(hf_K=K, hf_hs=HS), dict(lanes_per_branch=4), 11),
+    "g1-plane-P-tanh-deep": ("g1", dict(), dict(lanes_per_branch=4), 13),
 }
 
 

@@ -410,6 +410,11 @@ def test_torque_control_stiction_heightfield_kernel_matches_plain_version():
 # the bipeds at a pair of lanes a leg (G = 4).
 OTHER_BUILDS = {"anymal_c_flat": "fused_control_step_T", "anymal_c_rough": "fused_control_step_T_hf",
                 "cassie": "fused_control_step_hf", "g1": "fused_control_step"}
+# the layout each build launches at 4096 envs, (lanes per env, lanes per
+# branch): ANYmal's legs of 3 a pair of lanes each, the bipeds' chains of 6
+# four lanes each, the inward pass split by block (the layout for deep chains)
+OTHER_LAYOUTS = {"anymal_c_flat": (8, 2), "anymal_c_rough": (8, 2), "cassie": (8, 4),
+                 "g1": (8, 4)}
 
 
 def _robot_env(task, tmp_path_factory):
@@ -449,6 +454,14 @@ def test_other_robot_build_matches_plain_version(task, tmp_path_factory):
     _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]),
                       HF_TOL if spec.hf_K else TOL)
     assert float(ref[1].abs().max()) > 10.0          # the feet are in contact
+    # the build the wrapper launched: its layout, and no spill to local memory
+    kernel = fused_step.load_kernel(spec, B)
+    info = fused_step.launch_info(kernel, B)
+    G, lanes = OTHER_LAYOUTS[task]
+    assert (info["lanes_per_env"], info["lanes_per_branch"]) == (G, lanes)
+    assert info["grid"] == -(-B * G // info["block"]) and info["resident_blocks_per_sm"] >= 2
+    summary = fused_step.ptxas_summary(kernel.ptxas)
+    assert summary["spill_store_bytes"] == summary["spill_load_bytes"] == 0
 
 
 @pytest.mark.cuda

@@ -8,7 +8,8 @@ URDF of test_torch_physics.py, a single chain, the test tree, which forks
 below the base, and the synthetic stand-ins of the other robots the port
 trains: ANYmal-C (4 legs like Go2), and the bipeds Cassie (every joint frame
 a dense rotation) and G1 (planar and tilted joints mixed), 2 branches of
-depth 6 each.  The plan-walking step must equal `plain_control_step` (whose
+depth 6 each, which also take the layout for deep chains (four lanes a
+branch, the inward pass split by block).  The plan-walking step must equal `plain_control_step` (whose
 parity with JAX `control_step_components` test_torch_physics.py,
 test_torch_hf_step.py and test_torch_k2_step.py hold): a wrong index in the
 plan's tables shows here, where no kernel can run.
@@ -114,13 +115,22 @@ def _spec(urdfs, model, **variant):
     return tree_model.plant_spec(urdf, angles, **variant)
 
 
-@pytest.mark.parametrize("lanes", [1, 2])
-@pytest.mark.parametrize("model", MODELS)
+# every model at one lane and a pair of lanes a branch; the bipeds also in the
+# layout for deep chains, four lanes a branch
+OWNER_CASES = [(m, lanes) for m in MODELS for lanes in (1, 2)] + [("cassie", 4), ("g1", 4)]
+
+
+@pytest.mark.parametrize("model,lanes", OWNER_CASES)
 def test_every_body_sphere_and_dof_has_one_owner(urdfs, model, lanes):
     spec = _spec(urdfs, model, implicit_stiction=True)
     plan = lane_plan.lane_plan(spec, lanes)
     nb, ndof, G, D = len(spec.parent), len(spec.parent) - 1, plan.G, plan.depth
     assert G & (G - 1) == 0 and G >= plan.n_branches * lanes
+    assert plan.split == (lanes == 4)      # four lanes split the inward pass by block
+    # the lanes of a branch are consecutive and aligned, so a branch's lane i
+    # is lane i of its group of `lanes` (the kernel's shuffles rely on it)
+    for g0 in range(0, G, lanes):
+        assert all((plan.body[:, g] == plan.body[:, g0]).all() for g in range(g0, g0 + lanes))
     # each moving body is walked by the `lanes` lanes of one branch, stored by one
     for i in range(1, nb):
         assert int((plan.body == i).sum()) == lanes
@@ -185,11 +195,17 @@ def test_lanes_and_depth_match_the_tree(urdfs, model):
         assert plan.first == (1, 1, 1) and plan.has_child == (1, 1, 0)
         pair = lane_plan.lane_plan(spec, 2)
         assert (pair.G, pair.n_sph, pair.n_sph_base) == (8, (1, 2, 2), 1)
-    if model in ("cassie", "g1"):   # two chains of 6, a pair of lanes a leg: G = 4
+    if model in ("cassie", "g1"):   # two chains of 6: four lanes a leg, G = 8 (a pair: 4)
         assert plan.body.T.tolist() == [[1, 2, 3, 4, 5, 6], [7, 8, 9, 10, 11, 12]]
         assert plan.pslot_level == (-1, 0, 1, 2, 3, 4) and plan.has_child == (1,) * 5 + (0,)
         assert plan.rot_axis == {"cassie": (-1,) * 6, "g1": (1, -1, 2, -1, 1, 0)}[model]
         assert lane_plan.lane_plan(spec, 2).G == 4
+        deep = lane_plan.lane_plan(spec, fused_step.lanes_per_branch_for(spec))
+        assert (deep.G, deep.lanes_per_branch, deep.split) == (8, 4, True)
+        assert deep.body.T.tolist() == [[1, 2, 3, 4, 5, 6]] * 4 + [[7, 8, 9, 10, 11, 12]] * 4
+        # a quarter of a body's spheres each, the base's dealt over all 8 lanes
+        assert (deep.n_sph, deep.n_sph_base) == (
+            {"cassie": (0, 0, 1, 1, 1, 1), "g1": (0, 0, 1, 1, 0, 1)}[model], 1)
     if model == "anymal_c":         # HAA about x, HFE and KFE about y, identity frames
         assert plan.rot_axis == (0, 1, 1) and lane_plan.lane_plan(spec, 2).G == 8
     if model == "tree":     # a2 and a3 both hang on a1; b3 hangs on b2
@@ -254,6 +270,10 @@ def test_spec_header_carries_the_plan(urdfs):
     baked = np.array([np.float32(t.rstrip("f")) for t in line.split("{")[1].rstrip("}").split(", ")])
     np.testing.assert_array_equal(baked, plan.ftab.astype(np.float32).ravel())
     assert "#define LGC_P_G 8" in fused_step.spec_header(spec, lanes_per_branch=2)
+    assert "#define LGC_P_SPLIT 0" in header
+    deep = fused_step.spec_header(_spec(urdfs, "cassie"), lanes_per_branch=4)
+    assert "#define LGC_P_G 8" in deep and "#define LGC_P_LPB 4" in deep
+    assert "#define LGC_P_SPLIT 1" in deep
 
 
 def test_library_key_follows_the_plan(urdfs):
@@ -275,21 +295,33 @@ def test_library_key_follows_the_plan(urdfs):
 
 @pytest.mark.parametrize("model", MODELS)
 def test_layout_follows_from_the_spec(urdfs, model):
-    """The spec's layout is a pair of lanes per branch wherever the pairs fit
-    a warp (every model here), and one lane per branch beyond 16 branches; the
-    wrapper takes it up to PAIR_MAX_ENVS envs and one lane per branch above."""
+    """The spec's layout follows from the tree alone: four lanes per branch
+    where a branch is deeper than DEEP_CHAIN_DEPTH (3) and they fit a warp
+    (the bipeds' chains of 6), else a pair of lanes per branch wherever the
+    pairs fit a warp (the other models), and one lane per branch beyond 16
+    branches; the wrapper takes it up to PAIR_MAX_ENVS envs and one lane per
+    branch above."""
     spec = _spec(urdfs, model)
-    assert fused_step.lanes_per_branch_for(spec) == 2
+    lanes = 4 if model in ("cassie", "g1") else 2
+    assert fused_step.lanes_per_branch_for(spec) == lanes
     for batch in (1, 128, fused_step.PAIR_MAX_ENVS):
-        assert fused_step.lanes_for_batch(spec, batch) == 2
+        assert fused_step.lanes_for_batch(spec, batch) == lanes
     for batch in (fused_step.PAIR_MAX_ENVS + 1, 65536):
         assert fused_step.lanes_for_batch(spec, batch) == 1
     assert lane_plan.lane_plan(spec, 2).G == 2 * lane_plan.lane_plan(spec, 1).G
+    assert lane_plan.lane_plan(spec, 4).G == 4 * lane_plan.lane_plan(spec, 1).G
     star = spec._replace(parent=(-1,) + (0,) * 17)     # 17 branches: 34 lanes would not fit
     assert fused_step.lanes_per_branch_for(star) == 1
     assert fused_step.lanes_for_batch(star, 128) == 1
     with pytest.raises(ValueError):
         lane_plan.lane_plan(star._replace(parent=(-1,) + (0,) * 33))
+    # chains of 4 under the base: deep, while four lanes each fit a warp
+    chains = lambda n: (-1,) + tuple(0 if j == 0 else 1 + 4 * c + j - 1
+                                     for c in range(n) for j in range(4))
+    assert fused_step.lanes_per_branch_for(spec._replace(parent=chains(8))) == 4
+    assert fused_step.lanes_per_branch_for(spec._replace(parent=chains(9))) == 2
+    shallow = (-1,) + tuple(0 if j == 0 else 1 + 3 * c + j - 1 for c in range(8) for j in range(3))
+    assert fused_step.lanes_per_branch_for(spec._replace(parent=shallow)) == 2
 
 
 def _walk_and_plain(spec, model_angles, lanes, dtype, B=5, base_z=(0.15, 0.35)):
@@ -304,7 +336,8 @@ def _walk_and_plain(spec, model_angles, lanes, dtype, B=5, base_z=(0.15, 0.35)):
 @pytest.mark.parametrize("variant", list(VARIANTS))
 @pytest.mark.parametrize("model,lanes", [("tiny", 1), ("go2", 1), ("go2", 2), ("tree", 1),
                                          ("anymal_c", 2), ("cassie", 1), ("cassie", 2),
-                                         ("g1", 2)])
+                                         ("g1", 2), ("cassie", 4), ("g1", 4), ("go2", 4),
+                                         ("tree", 4)])
 def test_plan_walk_matches_plain_version(urdfs, model, lanes, variant):
     """One control step at B = 5 (a ragged size) walking the plan, against
     `plain_control_step`: in float64 to 1e-10, which only a right index

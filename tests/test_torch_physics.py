@@ -18,6 +18,7 @@ from legged_gym_custom_tpu.physics import algorithms as jalg
 from legged_gym_custom_tpu_torch import SYNTHETIC_GO2_URDF
 from legged_gym_custom_tpu_torch import physics as tphys
 from legged_gym_custom_tpu_torch.ops import fused_step as tfused
+import torch_tree_model as tree_model
 
 TINY_URDF = """<robot name="tiny">
   <link name="base">
@@ -206,15 +207,37 @@ def test_eager_control_step_matches_reference(robot, monkeypatch):
     _close("lin_vel", info.link_vel, ref_info.link_vel)
 
 
-def test_plain_kernel_matches_reference_components():
-    """The port's plain K1 (`control_step_components`) against the JAX
-    kernel body (`fused_step.control_step_components`, called with plain
-    arrays as tests/test_fused_step.py:72-107 does) at B = 64 on the
-    synthetic Go2 with the go2 plant."""
-    (ma_j, pd_j, dl_j), (ma_t, pd_t, dl_t) = _both(SYNTHETIC_GO2_URDF, GO2_DEFAULT)
-    state, dr, actions = _rand_batch(4, 64, GO2_DEFAULT)
-    spec_j = jfused.build_spec(ma_j, _plant(12, True), pd_j, dl_j)
-    spec_t = tfused.build_spec(ma_t, _plant(12, False), pd_t, dl_t)
+@pytest.mark.parametrize("model", ["go2", "cassie", "g1"])
+def test_plain_kernel_matches_reference_components(model):
+    """The port's plain version of the kernel (`control_step_components`)
+    against the JAX kernel body (`fused_step.control_step_components`,
+    called with plain arrays as tests/test_fused_step.py:72-107 does) at
+    B = 64 with the go2 plant: on the synthetic Go2 (K1), and on the
+    synthetic bipeds whose chains of 6 the card runs in the layout for deep
+    chains, Cassie on a bumpy heightfield window (K3) and G1 on the plane
+    (K1), each standing at its own height (up to 5 cm below its spawn
+    height)."""
+    rng = np.random.default_rng(8)
+    if model == "go2":
+        urdf, default_pos = SYNTHETIC_GO2_URDF, GO2_DEFAULT
+    else:
+        urdf, default_pos, base_z = tree_model.robot_urdf_and_angles(model)
+    ndof, B = len(default_pos), 64
+    (ma_j, pd_j, dl_j), (ma_t, pd_t, dl_t) = _both(urdf, default_pos)
+    state, dr, actions = _rand_batch(4, B, default_pos)
+    hf = dict(hf_K=24, hf_hs=0.1) if model == "cassie" else {}
+    terrain_t = terrain_j = None
+    if model != "go2":
+        state[0][2] = rng.uniform(*base_z, B).astype(np.float32)
+    if hf:   # a bumpy window under each base, centred on it
+        patch = (rng.normal(size=(B, 24, 24)) * 0.03 + 0.05).astype(np.float32)
+        half = np.float32(0.5 * 23 * 0.1)
+        xoff, yoff = state[0][0] - half, state[0][1] - half
+        terrain_t = tuple(torch.as_tensor(np.ascontiguousarray(a)) for a in (patch, xoff, yoff))
+        terrain_j = dict(patch=jnp.moveaxis(jnp.asarray(patch), 0, -1), xoff=jnp.asarray(xoff),
+                         yoff=jnp.asarray(yoff))
+    spec_j = jfused.build_spec(ma_j, _plant(ndof, True), pd_j, dl_j, **hf)
+    spec_t = tfused.build_spec(ma_t, _plant(ndof, False), pd_t, dl_t, **hf)
     # the port's spec adds the terrain sampling mode, which JAX's lacks
     assert tfused.FusedSpec._fields == jfused.FusedSpec._fields + ("terrain_tick_sample",)
     assert spec_t.terrain_tick_sample is True
@@ -224,20 +247,23 @@ def test_plain_kernel_matches_reference_components():
             assert a == b, field
         else:
             np.testing.assert_allclose(_flat(a), _flat(b), rtol=1e-6, err_msg=field)
+    if model != "go2":
+        assert tfused.lanes_per_branch_for(spec_t) == 4     # the card's layout for deep chains
 
     split = lambda a: [a[i] for i in range(a.shape[0])]
     keys = ("pos", "quat", "lin", "ang", "q", "qd")
     sj, aj, dj = [jnp.asarray(x) for x in state], jnp.asarray(actions), [jnp.asarray(x) for x in dr]
     st_j, lf_j, tau_j = jfused.control_step_components(
         spec_j, dict(zip(keys, map(split, sj))), split(aj), dj[0], dj[1], split(dj[2]),
-        split(dj[3]), split(dj[4]))
+        split(dj[3]), split(dj[4]), terrain=terrain_j)
     out_state, lf_t, tau_t = tfused.plain_control_step(
         spec_t, tuple(map(torch.as_tensor, state)), torch.as_tensor(actions),
-        tuple(map(torch.as_tensor, dr)))
+        tuple(map(torch.as_tensor, dr)), terrain_t)
     for name, k, got in zip(STATE, keys, out_state):
         _close(name, got, np.stack(st_j[k]))
     _close("link_forces", lf_t, np.asarray(lf_j))
     _close("torques", tau_t, np.stack(tau_j))
+    assert float(np.abs(np.asarray(lf_j)).max()) > 1.0      # the feet touch
 
 
 def _go2_spec():
