@@ -44,6 +44,7 @@ from legged_gym_custom_tpu_torch.physics import patch as patch_lib
 from legged_gym_custom_tpu_torch.physics import spatial as sp
 from legged_gym_custom_tpu_torch.physics.engine import DomainRandParams, PhysicsState
 from legged_gym_custom_tpu_torch.terrain import Terrain
+from legged_gym_custom_tpu_torch.utils.profiling import span
 from . import rewards as rew_lib
 from .rewards import RewardCtx, RewardStatics
 
@@ -753,181 +754,191 @@ class LeggedEnv:
         B = self.num_envs
         gen = state.rng
         clip_a = cfg.normalization.clip_actions
-        actions = torch.clamp(actions, -clip_a, clip_a)
+        with span("lgc.env.step"):
+            # ---- physics (decimated PD torque loop) ----
+            with span("lgc.env.physics"):
+                actions = torch.clamp(actions, -clip_a, clip_a)
+                ph, info, actuator_state = self._vstep(state.physics, actions, state.dr,
+                                                       state.actuator_state)
 
-        # ---- physics (decimated PD torque loop) ----
-        ph, info, actuator_state = self._vstep(state.physics, actions, state.dr,
-                                               state.actuator_state)
-        episode_length = state.episode_length + 1
-        common_step = state.common_step + 1
+            with span("lgc.env.post_physics"):
+                episode_length = state.episode_length + 1
+                common_step = state.common_step + 1
 
-        # ---- derived quantities (go2.py:352-367) ----
-        base_lin_vel = sp.quat_rotate_inverse(ph.base_quat, ph.lin_vel)
-        base_ang_vel = sp.quat_rotate_inverse(ph.base_quat, ph.ang_vel)
-        projected_gravity = sp.quat_rotate_inverse(ph.base_quat, self._gravity_dir.expand(B, 3))
-        roll, pitch, yaw = sp.quat_to_rpy(ph.base_quat)
-        fwd = sp.quat_rotate(ph.base_quat, self._unit_x.expand(B, 3))
-        heading = torch.atan2(fwd[:, 1], fwd[:, 0])
+                # ---- derived quantities (go2.py:352-367) ----
+                base_lin_vel = sp.quat_rotate_inverse(ph.base_quat, ph.lin_vel)
+                base_ang_vel = sp.quat_rotate_inverse(ph.base_quat, ph.ang_vel)
+                projected_gravity = sp.quat_rotate_inverse(ph.base_quat,
+                                                           self._gravity_dir.expand(B, 3))
+                roll, pitch, yaw = sp.quat_to_rpy(ph.base_quat)
+                fwd = sp.quat_rotate(ph.base_quat, self._unit_x.expand(B, 3))
+                heading = torch.atan2(fwd[:, 1], fwd[:, 0])
 
-        # ---- feet states + gait phases (go2.py:266-328) ----
-        state_pre = state.replace(physics=ph, episode_length=episode_length,
-                                  common_step=common_step)
-        phases = self._phases(state_pre)
-        feet_pos = info.link_pos[:, self.feet_ids, :]
-        feet_force = info.link_forces[:, self.feet_ids, :]
-        cur_contact = feet_force[:, :, 2] > 1.0
-        contact_filt = cur_contact | state.last_contacts
-        last_contacts = cur_contact
-        last_contact_heights = torch.where(contact_filt, feet_pos[:, :, 2],
-                                           state.last_contact_heights)
-        first_contact = (state.feet_air_time > 0.0) & contact_filt
-        feet_air_time = state.feet_air_time + self.dt
+                # ---- feet states + gait phases (go2.py:266-328) ----
+                state_pre = state.replace(physics=ph, episode_length=episode_length,
+                                          common_step=common_step)
+                phases = self._phases(state_pre)
+                feet_pos = info.link_pos[:, self.feet_ids, :]
+                feet_force = info.link_forces[:, self.feet_ids, :]
+                cur_contact = feet_force[:, :, 2] > 1.0
+                contact_filt = cur_contact | state.last_contacts
+                last_contacts = cur_contact
+                last_contact_heights = torch.where(contact_filt, feet_pos[:, :, 2],
+                                                   state.last_contact_heights)
+                first_contact = (state.feet_air_time > 0.0) & contact_filt
+                feet_air_time = state.feet_air_time + self.dt
 
-        # ---- post-physics callback (go2.py:390-410) ----
-        resample_mask = (episode_length % self.resample_interval) == 0
-        commands = self._resample_commands(state_pre.replace(commands=state.commands), gen,
-                                           resample_mask)
-        if cfg.commands.heading_command:
-            gain = getattr(cfg.commands, "heading_error_gain", 0.5)
-            err = sp.wrap_to_pi(commands[:, 3] - heading) * gain
-            commands[:, 2] = torch.clamp(err, -1.0, 1.0)
-        measured_heights = self._get_heights(ph)
-        if cfg.domain_rand.push_robots:
-            push_vel = self._uniform(gen, (B, 2), -cfg.domain_rand.max_push_vel_xy,
-                                     cfg.domain_rand.max_push_vel_xy)
-            if common_step % self.push_interval == 0:
-                ph = ph._replace(lin_vel=torch.cat([push_vel, ph.lin_vel[:, 2:]], dim=1))
+                # ---- post-physics callback (go2.py:390-410) ----
+                resample_mask = (episode_length % self.resample_interval) == 0
+                commands = self._resample_commands(state_pre.replace(commands=state.commands), gen,
+                                                   resample_mask)
+                if cfg.commands.heading_command:
+                    gain = getattr(cfg.commands, "heading_error_gain", 0.5)
+                    err = sp.wrap_to_pi(commands[:, 3] - heading) * gain
+                    commands[:, 2] = torch.clamp(err, -1.0, 1.0)
+                measured_heights = self._get_heights(ph)
+                if cfg.domain_rand.push_robots:
+                    push_vel = self._uniform(gen, (B, 2), -cfg.domain_rand.max_push_vel_xy,
+                                             cfg.domain_rand.max_push_vel_xy)
+                    if common_step % self.push_interval == 0:
+                        ph = ph._replace(lin_vel=torch.cat([push_vel, ph.lin_vel[:, 2:]], dim=1))
 
-        derived = dict(
-            base_lin_vel=base_lin_vel,
-            base_ang_vel=base_ang_vel,
-            projected_gravity=projected_gravity,
-            link_forces=info.link_forces,
-        )
+                derived = dict(
+                    base_lin_vel=base_lin_vel,
+                    base_ang_vel=base_ang_vel,
+                    projected_gravity=projected_gravity,
+                    link_forces=info.link_forces,
+                )
 
-        # ---- course progress and stall (JAX base_env.py:796-806): the new
-        # ground beyond the episode's largest x, and how long a moving
-        # command has gained less than stall_min_vel of it
-        base_x = ph.base_pos[:, 0]
-        progress = torch.clamp(base_x - state.max_x, min=0.0) / self.dt
-        max_x = torch.maximum(state.max_x, base_x)
-        stalled = (torch.linalg.norm(commands[:, :3], dim=1) >= 0.2) & \
-            (progress < self.stall_min_vel)
-        stall_time = torch.where(stalled, state.stall_time + self.dt, 0.0)
+                # ---- course progress and stall (JAX base_env.py:796-806): the new
+                # ground beyond the episode's largest x, and how long a moving
+                # command has gained less than stall_min_vel of it
+                base_x = ph.base_pos[:, 0]
+                progress = torch.clamp(base_x - state.max_x, min=0.0) / self.dt
+                max_x = torch.maximum(state.max_x, base_x)
+                stalled = (torch.linalg.norm(commands[:, :3], dim=1) >= 0.2) & \
+                    (progress < self.stall_min_vel)
+                stall_time = torch.where(stalled, state.stall_time + self.dt, 0.0)
 
-        # ---- termination (go2.py:186-204) ----
-        state_mid = state_pre.replace(physics=ph, commands=commands,
-                                      measured_heights=measured_heights, max_x=max_x,
-                                      stall_time=stall_time)
-        reset_buf, time_out_buf = self._check_termination(state_mid, derived)
+                # ---- termination (go2.py:186-204) ----
+                state_mid = state_pre.replace(physics=ph, commands=commands,
+                                              measured_heights=measured_heights, max_x=max_x,
+                                              stall_time=stall_time)
+                reset_buf, time_out_buf = self._check_termination(state_mid, derived)
 
-        # ---- rewards (legged_robot.py:216-237) ----
-        ctx = RewardCtx(
-            base_pos=ph.base_pos,
-            base_lin_vel=base_lin_vel,
-            base_ang_vel=base_ang_vel,
-            world_lin_vel=ph.lin_vel,
-            projected_gravity=projected_gravity,
-            roll=roll, pitch=pitch, yaw=yaw, heading=heading,
-            commands=commands,
-            dof_pos=ph.dof_pos,
-            dof_vel=ph.dof_vel,
-            last_dof_vel=state.last_dof_vel,
-            torques=info.torques,
-            last_torques=state.last_torques,
-            actions=actions,
-            last_actions=state.last_actions,
-            link_forces=info.link_forces,
-            feet_pos=feet_pos,
-            feet_vel=info.link_vel[:, self.feet_ids, :],
-            last_contact_heights=last_contact_heights,
-            contact_filt=contact_filt,
-            feet_air_time=feet_air_time,
-            first_contact=first_contact,
-            phases=phases,
-            measured_heights=measured_heights,
-            jump_flags=state.jump_flags,
-            reset_buf=reset_buf,
-            time_out_buf=time_out_buf,
-            progress=progress,
-        )
-        rew_buf = torch.zeros(B, device=self.device)
-        terms = []
-        for name, fn, scale in self.reward_terms:
-            r = fn(ctx, self.reward_statics) * scale
-            rew_buf = rew_buf + r
-            terms.append(r)
-        if cfg.rewards.only_positive_rewards:
-            rew_buf = torch.clamp(rew_buf, min=0.0)
-        if self.termination_scale is not None:
-            r = rew_lib.REWARD_REGISTRY["termination"](ctx, self.reward_statics) * (
-                self.termination_scale * self.dt)
-            rew_buf = rew_buf + r
-            terms.append(r)
-        episode_sums = state.episode_sums + torch.stack(terms, dim=1)
+            # ---- rewards (legged_robot.py:216-237) ----
+            with span("lgc.env.rewards"):
+                ctx = RewardCtx(
+                    base_pos=ph.base_pos,
+                    base_lin_vel=base_lin_vel,
+                    base_ang_vel=base_ang_vel,
+                    world_lin_vel=ph.lin_vel,
+                    projected_gravity=projected_gravity,
+                    roll=roll, pitch=pitch, yaw=yaw, heading=heading,
+                    commands=commands,
+                    dof_pos=ph.dof_pos,
+                    dof_vel=ph.dof_vel,
+                    last_dof_vel=state.last_dof_vel,
+                    torques=info.torques,
+                    last_torques=state.last_torques,
+                    actions=actions,
+                    last_actions=state.last_actions,
+                    link_forces=info.link_forces,
+                    feet_pos=feet_pos,
+                    feet_vel=info.link_vel[:, self.feet_ids, :],
+                    last_contact_heights=last_contact_heights,
+                    contact_filt=contact_filt,
+                    feet_air_time=feet_air_time,
+                    first_contact=first_contact,
+                    phases=phases,
+                    measured_heights=measured_heights,
+                    jump_flags=state.jump_flags,
+                    reset_buf=reset_buf,
+                    time_out_buf=time_out_buf,
+                    progress=progress,
+                )
+                rew_buf = torch.zeros(B, device=self.device)
+                terms = []
+                for name, fn, scale in self.reward_terms:
+                    r = fn(ctx, self.reward_statics) * scale
+                    rew_buf = rew_buf + r
+                    terms.append(r)
+                if cfg.rewards.only_positive_rewards:
+                    rew_buf = torch.clamp(rew_buf, min=0.0)
+                if self.termination_scale is not None:
+                    r = rew_lib.REWARD_REGISTRY["termination"](ctx, self.reward_statics) * (
+                        self.termination_scale * self.dt)
+                    rew_buf = rew_buf + r
+                    terms.append(r)
+                episode_sums = state.episode_sums + torch.stack(terms, dim=1)
 
-        # feet air time consumed on contact (go2.py:830)
-        feet_air_time = feet_air_time * ~contact_filt
+                # feet air time consumed on contact (go2.py:830)
+                feet_air_time = feet_air_time * ~contact_filt
 
-        # ---- masked reset (reset_idx, go2.py:207-263) ----
-        levels, origins = self._update_terrain_curriculum(state_mid, gen, reset_buf)
-        command_ranges = self._update_command_curriculum(
-            state_mid.replace(episode_sums=episode_sums), reset_buf)
-        state_mid = state_mid.replace(command_ranges=command_ranges)
-        reset_physics = self._sample_reset_physics(state_mid, gen, origins)
-        ph = PhysicsState(*[_where(reset_buf, new, old) for new, old in zip(reset_physics, ph)])
-        commands = self._resample_commands(state_mid.replace(physics=ph), gen, reset_buf)
-        last_actions = _where(reset_buf, torch.zeros_like(actions), actions)
-        last_dof_vel = _where(reset_buf, torch.zeros_like(ph.dof_vel), ph.dof_vel)
-        last_torques = _where(reset_buf, torch.zeros_like(info.torques), info.torques)
-        obs_history = _where(reset_buf, torch.zeros_like(state.obs_history), state.obs_history)
-        episode_length = torch.where(reset_buf, 0, episode_length)
-        feet_air_time = _where(reset_buf, torch.zeros_like(feet_air_time), feet_air_time)
-        last_contacts = _where(reset_buf, torch.zeros_like(last_contacts), last_contacts)
-        last_contact_heights = _where(reset_buf, torch.zeros_like(last_contact_heights),
-                                      last_contact_heights)
-        # envs that reset restart their progress tracking at the respawn x
-        max_x = torch.where(reset_buf, ph.base_pos[:, 0], max_x)
-        stall_time = torch.where(reset_buf, 0.0, stall_time)
-        # per-env episode sums of the envs that reset this step; the runner
-        # reduces them once per iteration (go2.py:245-263)
-        episode_contrib = _where(reset_buf, episode_sums, torch.zeros_like(episode_sums))
-        episode_sums = _where(reset_buf, torch.zeros_like(episode_sums), episode_sums)
-        info_out: Dict[str, Any] = {"time_outs": time_out_buf,
-                                    "episode_contrib": episode_contrib}
+            # ---- masked reset (reset_idx, go2.py:207-263) ----
+            with span("lgc.env.reset"):
+                levels, origins = self._update_terrain_curriculum(state_mid, gen, reset_buf)
+                command_ranges = self._update_command_curriculum(
+                    state_mid.replace(episode_sums=episode_sums), reset_buf)
+                state_mid = state_mid.replace(command_ranges=command_ranges)
+                reset_physics = self._sample_reset_physics(state_mid, gen, origins)
+                ph = PhysicsState(*[_where(reset_buf, new, old)
+                                    for new, old in zip(reset_physics, ph)])
+                commands = self._resample_commands(state_mid.replace(physics=ph), gen, reset_buf)
+                last_actions = _where(reset_buf, torch.zeros_like(actions), actions)
+                last_dof_vel = _where(reset_buf, torch.zeros_like(ph.dof_vel), ph.dof_vel)
+                last_torques = _where(reset_buf, torch.zeros_like(info.torques), info.torques)
+                obs_history = _where(reset_buf, torch.zeros_like(state.obs_history),
+                                     state.obs_history)
+                episode_length = torch.where(reset_buf, 0, episode_length)
+                feet_air_time = _where(reset_buf, torch.zeros_like(feet_air_time), feet_air_time)
+                last_contacts = _where(reset_buf, torch.zeros_like(last_contacts), last_contacts)
+                last_contact_heights = _where(reset_buf, torch.zeros_like(last_contact_heights),
+                                              last_contact_heights)
+                # envs that reset restart their progress tracking at the respawn x
+                max_x = torch.where(reset_buf, ph.base_pos[:, 0], max_x)
+                stall_time = torch.where(reset_buf, 0.0, stall_time)
+                # per-env episode sums of the envs that reset this step; the runner
+                # reduces them once per iteration (go2.py:245-263)
+                episode_contrib = _where(reset_buf, episode_sums, torch.zeros_like(episode_sums))
+                episode_sums = _where(reset_buf, torch.zeros_like(episode_sums), episode_sums)
+                actuator_state = self._reset_actuator_state(actuator_state, reset_buf)
+                info_out: Dict[str, Any] = {"time_outs": time_out_buf,
+                                            "episode_contrib": episode_contrib}
 
-        # ---- observations ----
-        new_state = state_mid.replace(
-            physics=ph,
-            episode_length=episode_length,
-            commands=commands,
-            actions=actions,
-            last_actions=last_actions,
-            last_dof_vel=last_dof_vel,
-            last_torques=last_torques,
-            obs_history=obs_history,
-            feet_air_time=feet_air_time,
-            last_contacts=last_contacts,
-            last_contact_heights=last_contact_heights,
-            terrain_levels=levels,
-            env_origins=origins,
-            episode_sums=episode_sums,
-            max_x=max_x,
-            stall_time=stall_time,
-            actuator_state=self._reset_actuator_state(actuator_state, reset_buf),
-        )
-        new_state, obs = self._compute_observations(new_state, derived, gen)
+            # ---- observations ----
+            with span("lgc.env.obs"):
+                new_state = state_mid.replace(
+                    physics=ph,
+                    episode_length=episode_length,
+                    commands=commands,
+                    actions=actions,
+                    last_actions=last_actions,
+                    last_dof_vel=last_dof_vel,
+                    last_torques=last_torques,
+                    obs_history=obs_history,
+                    feet_air_time=feet_air_time,
+                    last_contacts=last_contacts,
+                    last_contact_heights=last_contact_heights,
+                    terrain_levels=levels,
+                    env_origins=origins,
+                    episode_sums=episode_sums,
+                    max_x=max_x,
+                    stall_time=stall_time,
+                    actuator_state=actuator_state,
+                )
+                new_state, obs = self._compute_observations(new_state, derived, gen)
 
-        # clip all streams except scan (legged_robot.py:91-97)
-        c = cfg.normalization.clip_observations
-        obs = Obs(
-            obs=torch.clamp(obs.obs, -c, c),
-            privileged=torch.clamp(obs.privileged, -c, c),
-            critic=torch.clamp(obs.critic, -c, c),
-            estimated=torch.clamp(obs.estimated, -c, c),
-            scan=obs.scan,
-        )
-        return new_state, obs, rew_buf, reset_buf, info_out
+                # clip all streams except scan (legged_robot.py:91-97)
+                c = cfg.normalization.clip_observations
+                obs = Obs(
+                    obs=torch.clamp(obs.obs, -c, c),
+                    privileged=torch.clamp(obs.privileged, -c, c),
+                    critic=torch.clamp(obs.critic, -c, c),
+                    estimated=torch.clamp(obs.estimated, -c, c),
+                    scan=obs.scan,
+                )
+                return new_state, obs, rew_buf, reset_buf, info_out
 
     def _pre_obs_hook(self, state: EnvState) -> EnvState:
         """Task hook run before obs assembly."""

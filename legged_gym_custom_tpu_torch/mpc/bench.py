@@ -6,7 +6,7 @@ legged_gym_custom_tpu/mpc/bench.py.
 An eager solve is many launches (one fused control step and the eager link
 states and stage costs per horizon step), not one dispatch, so device time
 comes from `torch.profiler`'s device events over a window of solves, each
-solve inside a `record_function("mppi_solve")` span.  Per solve it reports
+solve inside the solver's own `lgc.mppi.solve` span.  Per solve it reports
   * busy: the sum of the durations of its kernels and copies, the time the
     card needs for the solve with the host out of the way
     (`device_solve_ms`, the closed loop's `value`);
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 BUDGET_MS = 20.0          # one 50 Hz control tick
-SPAN = "mppi_solve"       # the record_function span around each profiled solve
+SPAN = "lgc.mppi.solve"   # the solver's span around each solve (`MPPI.solve`)
 FUSED_KERNEL = "fused_control_step_kernel"   # ops/csrc/fused_step.cu's kernel
 # The device windows are short: a solve is thousands of host and device
 # events, each of which the profiler holds until the window is read.
@@ -92,10 +92,10 @@ def solve_device_times(prof, span: str = SPAN):
 
 def _timed_solves(batch, samples, horizon, warmup, n, n_prof, device):
     """`warmup` solves, then `n` synchronized solves timed by the wall clock,
-    then on a card `n_prof` more under torch.profiler, each in a SPAN span;
+    then on a card `n_prof` more under torch.profiler, each in its SPAN span;
     returns (wall ms of the n solves, solve_device_times of the profiled
     ones, the device, the solves run)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     env, state, mpc, ms, gen = _setup(batch, samples, horizon, device)
     dev = env.device
@@ -113,8 +113,7 @@ def _timed_solves(batch, samples, horizon, warmup, n, n_prof, device):
         return np.asarray(wall), [], dev, warmup + n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
-            with record_function(SPAN):
-                ms = mpc.solve(ms, *args, gen)[1]
+            ms = mpc.solve(ms, *args, gen)[1]
             _sync(dev)
     return np.asarray(wall), solve_device_times(prof), dev, warmup + n + n_prof
 

@@ -33,6 +33,7 @@ from legged_gym_custom_tpu_torch.ops import fused_step
 from legged_gym_custom_tpu_torch.physics import heightfield as hfield
 from legged_gym_custom_tpu_torch.physics import soa
 from legged_gym_custom_tpu_torch.physics.engine import DomainRandParams, PhysicsState
+from legged_gym_custom_tpu_torch.utils.profiling import span
 
 
 class MPPIConfig(NamedTuple):
@@ -190,8 +191,9 @@ class MPPI:
             step = (env.ma, self.hf, env.sim_params, env.pd, dr, env.dof_limits, ph, actions)
             ph, info = (phys.control_step(*step, spec=self.spec) if self.spec is not None
                         else phys.eager_control_step(*step))
-            costs.append(stage_cost(cfg, self.statics, self.hf, ph, info, commands, actions,
-                                    prev_a, phases_seq[t]))
+            with span("lgc.mppi.stage_cost"):
+                costs.append(stage_cost(cfg, self.statics, self.hf, ph, info, commands, actions,
+                                        prev_a, phases_seq[t]))
             prev_a = actions
         return torch.stack(costs).sum(dim=0)
 
@@ -253,5 +255,6 @@ class MPPI:
 
     def solve(self, mpc_state: MPCState, physics, dr, commands, gen: torch.Generator):
         """`draw_noise` from `gen`, then `solve_with_noise`."""
-        eps = self.draw_noise(gen, commands.shape[0])
-        return self.solve_with_noise(mpc_state, physics, dr, commands, eps)
+        with span("lgc.mppi.solve"):
+            eps = self.draw_noise(gen, commands.shape[0])
+            return self.solve_with_noise(mpc_state, physics, dr, commands, eps)

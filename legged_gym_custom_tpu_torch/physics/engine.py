@@ -36,6 +36,7 @@ from .algorithms import ModelArrays, aba, body_inertias, crba, forward_kinematic
 from . import patch
 from .contact import ContactParams, compute_contacts, geom_centers, sample_surface
 from .heightfield import Heightfield
+from ..utils.profiling import span
 
 
 class PhysicsState(NamedTuple):
@@ -262,7 +263,8 @@ def eager_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: 
     """The control step in plain PyTorch ops: decimation x substeps with the
     PD torques refreshed from the current dof state at every tick, as the
     reference's XLA path (engine.py:301-380)."""
-    return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions)[:2]
+    with span("lgc.physics"):
+        return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions)[:2]
 
 
 def eager_actuated_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams,
@@ -271,8 +273,9 @@ def eager_actuated_control_step(ma: ModelArrays, hf: Heightfield, params: SimPar
     """A stateful actuator's control step in plain PyTorch ops, as the
     reference's XLA path with `torque_fn` (engine.py:301-380).
     Returns (state', StepInfo, actuator_state')."""
-    return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions, torque_fn,
-                       actuator_state)
+    with span("lgc.physics"):
+        return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions, torque_fn,
+                           actuator_state)
 
 
 def _check_kernel_terrain(hf: Heightfield, params: SimParams):
@@ -301,28 +304,29 @@ def control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDPara
     heightfield the per-env windows are cut here and passed to the kernel's
     heightfield variant.  CPU tensors run `eager_control_step`.
     """
-    if not state.dof_pos.is_cuda:
-        return eager_control_step(ma, hf, params, pd, dr, dof_limits, state, actions)
-    from ..ops import fused_step
+    with span("lgc.physics"):
+        if not state.dof_pos.is_cuda:
+            return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions)[:2]
+        from ..ops import fused_step
 
-    terrain = None
-    _check_kernel_terrain(hf, params)
-    if not hf.is_plane:
-        lp = patch.extract(hf, state.base_pos[0], state.base_pos[1], patch_K(hf, params))
-        terrain = fused_step.patch_inputs(lp)
-    if spec is None:
-        spec = fused_step.build_spec(ma, params, pd, dof_limits, hf_K=patch_K(hf, params),
-                                     hf_hs=0.0 if hf.is_plane else hf.horizontal_scale)
-    out_state, link_forces, torques = fused_step.fused_control_step(
-        spec,
-        tuple(state),
-        actions,
-        (dr.friction, dr.added_mass, dr.com_offset, dr.kp_mult, dr.kd_mult),
-        terrain,
-    )
-    st = PhysicsState(*out_state)
-    lpos, lvel = link_states(ma, st)
-    return st, StepInfo(link_forces, lpos, lvel, torques)
+        terrain = None
+        _check_kernel_terrain(hf, params)
+        if not hf.is_plane:
+            lp = patch.extract(hf, state.base_pos[0], state.base_pos[1], patch_K(hf, params))
+            terrain = fused_step.patch_inputs(lp)
+        if spec is None:
+            spec = fused_step.build_spec(ma, params, pd, dof_limits, hf_K=patch_K(hf, params),
+                                         hf_hs=0.0 if hf.is_plane else hf.horizontal_scale)
+        out_state, link_forces, torques = fused_step.fused_control_step(
+            spec,
+            tuple(state),
+            actions,
+            (dr.friction, dr.added_mass, dr.com_offset, dr.kp_mult, dr.kd_mult),
+            terrain,
+        )
+        st = PhysicsState(*out_state)
+        lpos, lvel = link_states(ma, st)
+        return st, StepInfo(link_forces, lpos, lvel, torques)
 
 
 def tickwise_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,
@@ -369,14 +373,15 @@ def actuated_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, p
     CPU tensors run the eager loop; CUDA tensors run `tickwise_control_step`
     through the kernel (`spec` is the env's FusedSpec, built here when
     omitted) and raise rather than fall back to the eager loop."""
-    if not state.dof_pos.is_cuda:
-        return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions, torque_fn,
-                           actuator_state)
-    from ..ops import fused_step
+    with span("lgc.physics"):
+        if not state.dof_pos.is_cuda:
+            return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions, torque_fn,
+                               actuator_state)
+        from ..ops import fused_step
 
-    _check_kernel_terrain(hf, params)
-    if spec is None:
-        spec = fused_step.build_spec(ma, params, pd, dof_limits, hf_K=patch_K(hf, params),
-                                     hf_hs=0.0 if hf.is_plane else hf.horizontal_scale)
-    return tickwise_control_step(ma, hf, params, pd, dr, dof_limits, state, actions,
-                                 actuator_state, torque_fn, spec)
+        _check_kernel_terrain(hf, params)
+        if spec is None:
+            spec = fused_step.build_spec(ma, params, pd, dof_limits, hf_K=patch_K(hf, params),
+                                         hf_hs=0.0 if hf.is_plane else hf.horizontal_scale)
+        return tickwise_control_step(ma, hf, params, pd, dr, dof_limits, state, actions,
+                                     actuator_state, torque_fn, spec)

@@ -34,6 +34,7 @@ import torch
 
 from legged_gym_custom_tpu_torch.models.networks import ActorCriticNetworks
 from legged_gym_custom_tpu_torch.parallel.mesh import DataMesh, all_reduce_mean_, all_reduce_sum_
+from legged_gym_custom_tpu_torch.utils.profiling import span
 
 
 class PPOConfig(NamedTuple):
@@ -221,93 +222,95 @@ def ppo_update(cfg: PPOConfig, ts: TrainState, traj: Transition, returns, advant
     With a mesh, `traj` is this rank's shard and `perm` this rank's
     permutation of it; the metrics are means over the ranks.
     """
-    nets = ts.nets
-    T, B = traj.rewards.shape
-    batch = T * B
-    nmb = cfg.num_mini_batches
-    mb_size = batch // nmb
-    flat = Transition(*[x.reshape((batch,) + tuple(x.shape[2:])) for x in traj])
-    returns_f = returns.reshape(batch)
-    adv_f = advantages.reshape(batch)
-    perm = _permutation(batch, mb_size, nmb, generator, perm, returns.device)
-    reg_coef = roa_coefficient(cfg, ts.total_updates)
-    lr = ts.learning_rate
-    sums: Dict[str, torch.Tensor] = {}
-    n_steps = cfg.num_learning_epochs * nmb
-    for i in range(n_steps):
-        idx = perm[(i % nmb) * mb_size:(i % nmb + 1) * mb_size]
-        t = Transition(*[x[idx] for x in flat])
-        ret, adv = returns_f[idx], adv_f[idx]
+    with span("lgc.update.ppo"):
+        nets = ts.nets
+        T, B = traj.rewards.shape
+        batch = T * B
+        nmb = cfg.num_mini_batches
+        mb_size = batch // nmb
+        flat = Transition(*[x.reshape((batch,) + tuple(x.shape[2:])) for x in traj])
+        returns_f = returns.reshape(batch)
+        adv_f = advantages.reshape(batch)
+        perm = _permutation(batch, mb_size, nmb, generator, perm, returns.device)
+        reg_coef = roa_coefficient(cfg, ts.total_updates)
+        lr = ts.learning_rate
+        sums: Dict[str, torch.Tensor] = {}
+        n_steps = cfg.num_learning_epochs * nmb
+        for i in range(n_steps):
+            idx = perm[(i % nmb) * mb_size:(i % nmb + 1) * mb_size]
+            t = Transition(*[x[idx] for x in flat])
+            ret, adv = returns_f[idx], adv_f[idx]
 
-        estimated = nets.estimate(t.obs)  # grads flow to the estimator only
-        mean = nets.action_mean(t.obs, t.privileged, t.estimated, t.scan, adaptation_mode=False)
-        std = nets.std.expand_as(mean)
-        log_prob = gaussian_log_prob(t.actions, mean, std)
-        value = nets.value(t.critic)
-        entropy = gaussian_entropy(std)
+            estimated = nets.estimate(t.obs)  # grads flow to the estimator only
+            mean = nets.action_mean(t.obs, t.privileged, t.estimated, t.scan, adaptation_mode=False)
+            std = nets.std.expand_as(mean)
+            log_prob = gaussian_log_prob(t.actions, mean, std)
+            value = nets.value(t.critic)
+            entropy = gaussian_entropy(std)
 
-        # ROA regularization (adapt latent is stop-gradient, ppo.py:211-216)
-        priv_latent = nets.priv_encoder(t.privileged)
-        with torch.no_grad():
-            adapt_latent = nets.adapt_encoder(nets.history_part(t.obs))
-        reg_loss = torch.mean(torch.linalg.norm(priv_latent - adapt_latent, dim=-1))
-        est_loss = torch.mean(torch.sum((estimated - t.estimated) ** 2, dim=-1))
+            # ROA regularization (adapt latent is stop-gradient, ppo.py:211-216)
+            priv_latent = nets.priv_encoder(t.privileged)
+            with torch.no_grad():
+                adapt_latent = nets.adapt_encoder(nets.history_part(t.obs))
+            reg_loss = torch.mean(torch.linalg.norm(priv_latent - adapt_latent, dim=-1))
+            est_loss = torch.mean(torch.sum((estimated - t.estimated) ** 2, dim=-1))
 
-        ratio = torch.exp(log_prob - t.log_probs)
-        surr = -adv * ratio
-        surr_clipped = -adv * torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param)
-        surrogate_loss = torch.mean(torch.maximum(surr, surr_clipped))
-        if cfg.use_clipped_value_loss:
-            v_clipped = t.values + torch.clamp(value - t.values, -cfg.clip_param, cfg.clip_param)
-            value_loss = torch.mean(torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2))
-        else:
-            value_loss = torch.mean((ret - value) ** 2)
-        loss = (surrogate_loss + cfg.value_loss_coef * value_loss
-                - cfg.entropy_coef * torch.mean(entropy) + reg_coef * reg_loss)
-        with torch.no_grad():
-            kl = torch.mean(torch.sum(
-                torch.log(std / t.sigma + 1e-5)
-                + (t.sigma ** 2 + (t.mu - mean) ** 2) / (2.0 * std ** 2) - 0.5,
-                dim=-1))
+            ratio = torch.exp(log_prob - t.log_probs)
+            surr = -adv * ratio
+            surr_clipped = -adv * torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param)
+            surrogate_loss = torch.mean(torch.maximum(surr, surr_clipped))
+            if cfg.use_clipped_value_loss:
+                v_clipped = t.values + torch.clamp(value - t.values, -cfg.clip_param,
+                                                   cfg.clip_param)
+                value_loss = torch.mean(torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2))
+            else:
+                value_loss = torch.mean((ret - value) ** 2)
+            loss = (surrogate_loss + cfg.value_loss_coef * value_loss
+                    - cfg.entropy_coef * torch.mean(entropy) + reg_coef * reg_loss)
+            with torch.no_grad():
+                kl = torch.mean(torch.sum(
+                    torch.log(std / t.sigma + 1e-5)
+                    + (t.sigma ** 2 + (t.mu - mean) ** 2) / (2.0 * std ** 2) - 0.5,
+                    dim=-1))
 
-        ts.opt_policy.zero_grad(set_to_none=True)
-        ts.opt_est.zero_grad(set_to_none=True)
-        (loss + est_loss).backward()
-        if mesh is not None and mesh.distributed:
-            # the gradients and the metrics the adaptive LR reads, in one
-            # all-reduce (JAX pmeans `aux` so that every rank's LR agrees)
-            reduced = _pmean_grads_(mesh, ts.policy_params + ts.est_params, torch.stack(
-                [value_loss.detach(), surrogate_loss.detach(), reg_loss.detach(),
-                 est_loss.detach(), kl]))
-            value_loss, surrogate_loss, reg_loss, est_loss, kl = reduced.unbind()
+            ts.opt_policy.zero_grad(set_to_none=True)
+            ts.opt_est.zero_grad(set_to_none=True)
+            (loss + est_loss).backward()
+            if mesh is not None and mesh.distributed:
+                # the gradients and the metrics the adaptive LR reads, in one
+                # all-reduce (JAX pmeans `aux` so that every rank's LR agrees)
+                reduced = _pmean_grads_(mesh, ts.policy_params + ts.est_params, torch.stack(
+                    [value_loss.detach(), surrogate_loss.detach(), reg_loss.detach(),
+                     est_loss.detach(), kl]))
+                value_loss, surrogate_loss, reg_loss, est_loss, kl = reduced.unbind()
 
-        # adaptive-KL LR (ppo.py:234-246), applied to this minibatch's step;
-        # the host reads the KL here, once per minibatch, only in this mode
-        if cfg.schedule == "adaptive" and cfg.desired_kl is not None:
-            kl_host = kl.item()
-            if kl_host > cfg.desired_kl * 2.0:
-                lr = max(1e-5, lr / 1.5)
-            elif 0.0 < kl_host < cfg.desired_kl / 2.0:
-                lr = min(1e-2, lr * 1.5)
-            for group in ts.opt_policy.param_groups:
-                group["lr"] = lr
-        clip_by_global_norm_(ts.policy_params, cfg.max_grad_norm)
-        clip_by_global_norm_(ts.est_params, cfg.max_grad_norm)
-        ts.opt_policy.step()
-        ts.opt_est.step()
+            # adaptive-KL LR (ppo.py:234-246), applied to this minibatch's step;
+            # the host reads the KL here, once per minibatch, only in this mode
+            if cfg.schedule == "adaptive" and cfg.desired_kl is not None:
+                kl_host = kl.item()
+                if kl_host > cfg.desired_kl * 2.0:
+                    lr = max(1e-5, lr / 1.5)
+                elif 0.0 < kl_host < cfg.desired_kl / 2.0:
+                    lr = min(1e-2, lr * 1.5)
+                for group in ts.opt_policy.param_groups:
+                    group["lr"] = lr
+            clip_by_global_norm_(ts.policy_params, cfg.max_grad_norm)
+            clip_by_global_norm_(ts.est_params, cfg.max_grad_norm)
+            ts.opt_policy.step()
+            ts.opt_est.step()
 
-        for k, v in (("value_loss", value_loss), ("surrogate_loss", surrogate_loss),
-                     ("reg_loss", reg_loss), ("est_loss", est_loss), ("kl_mean", kl)):
-            sums[k] = sums.get(k, 0.0) + v.detach()
+            for k, v in (("value_loss", value_loss), ("surrogate_loss", surrogate_loss),
+                         ("reg_loss", reg_loss), ("est_loss", est_loss), ("kl_mean", kl)):
+                sums[k] = sums.get(k, 0.0) + v.detach()
 
-    with torch.no_grad():  # max-std clamp (ppo.py:301-307)
-        nets.std.clamp_(max=cfg.max_action_std)
-    metrics = {k: v / n_steps for k, v in sums.items()}
-    metrics["reg_coef"] = torch.tensor(reg_coef)
-    metrics["learning_rate"] = torch.tensor(lr)
-    ts.learning_rate = lr
-    ts.total_updates += 1.0
-    return metrics
+        with torch.no_grad():  # max-std clamp (ppo.py:301-307)
+            nets.std.clamp_(max=cfg.max_action_std)
+        metrics = {k: v / n_steps for k, v in sums.items()}
+        metrics["reg_coef"] = torch.tensor(reg_coef)
+        metrics["learning_rate"] = torch.tensor(lr)
+        ts.learning_rate = lr
+        ts.total_updates += 1.0
+        return metrics
 
 
 def dagger_update(cfg: PPOConfig, ts: TrainState, traj: Transition, generator=None,
@@ -316,29 +319,30 @@ def dagger_update(cfg: PPOConfig, ts: TrainState, traj: Transition, generator=No
     """Adaptation-encoder distillation (reference ppo.py:309-349).  With a
     mesh: this rank's shard and permutation, gradients and loss averaged
     over the ranks as in `ppo_update`."""
-    nets = ts.nets
-    T, B = traj.rewards.shape
-    batch = T * B
-    nmb = cfg.num_mini_batches
-    mb_size = batch // nmb
-    flat_obs = traj.obs.reshape((batch,) + tuple(traj.obs.shape[2:]))
-    flat_priv = traj.privileged.reshape((batch,) + tuple(traj.privileged.shape[2:]))
-    perm = _permutation(batch, mb_size, nmb, generator, perm, flat_obs.device)
-    total = 0.0
-    n_steps = cfg.num_learning_epochs * nmb
-    for i in range(n_steps):
-        idx = perm[(i % nmb) * mb_size:(i % nmb + 1) * mb_size]
-        obs, priv = flat_obs[idx], flat_priv[idx]
-        with torch.no_grad():
-            priv_latent = nets.priv_encoder(priv)
-        adapt_latent = nets.adapt_encoder(nets.history_part(obs))
-        loss = torch.mean(torch.linalg.norm(priv_latent - adapt_latent, dim=-1))
-        ts.opt_adapt.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None and mesh.distributed:
-            loss = _pmean_grads_(mesh, ts.adapt_params, loss.detach().reshape(1))[0]
-        clip_by_global_norm_(ts.adapt_params, cfg.max_grad_norm)
-        ts.opt_adapt.step()
-        total = total + loss.detach()
-    ts.total_updates += 1.0
-    return {"adaptation_loss": total / n_steps}
+    with span("lgc.update.dagger"):
+        nets = ts.nets
+        T, B = traj.rewards.shape
+        batch = T * B
+        nmb = cfg.num_mini_batches
+        mb_size = batch // nmb
+        flat_obs = traj.obs.reshape((batch,) + tuple(traj.obs.shape[2:]))
+        flat_priv = traj.privileged.reshape((batch,) + tuple(traj.privileged.shape[2:]))
+        perm = _permutation(batch, mb_size, nmb, generator, perm, flat_obs.device)
+        total = 0.0
+        n_steps = cfg.num_learning_epochs * nmb
+        for i in range(n_steps):
+            idx = perm[(i % nmb) * mb_size:(i % nmb + 1) * mb_size]
+            obs, priv = flat_obs[idx], flat_priv[idx]
+            with torch.no_grad():
+                priv_latent = nets.priv_encoder(priv)
+            adapt_latent = nets.adapt_encoder(nets.history_part(obs))
+            loss = torch.mean(torch.linalg.norm(priv_latent - adapt_latent, dim=-1))
+            ts.opt_adapt.zero_grad(set_to_none=True)
+            loss.backward()
+            if mesh is not None and mesh.distributed:
+                loss = _pmean_grads_(mesh, ts.adapt_params, loss.detach().reshape(1))[0]
+            clip_by_global_norm_(ts.adapt_params, cfg.max_grad_norm)
+            ts.opt_adapt.step()
+            total = total + loss.detach()
+        ts.total_updates += 1.0
+        return {"adaptation_loss": total / n_steps}

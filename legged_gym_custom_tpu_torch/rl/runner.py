@@ -189,11 +189,11 @@ class OnPolicyRunner:
 
     def run_iteration(self, adaptation_mode: bool):
         """One collection + update; returns (metrics, logs) as host floats."""
-        t0 = time.time()
+        t0 = time.perf_counter()
         with self._phase("collect"):
             traj, returns, advantages, logs = self._collect(adaptation_mode)
         self._sync()
-        t1 = time.time()
+        t1 = time.perf_counter()
         self.collection_time = t1 - t0
         with self._phase("update"):
             if adaptation_mode:
@@ -204,7 +204,7 @@ class OnPolicyRunner:
                                              advantages, self.generator, mesh=self.mesh)
         metrics["mean_std"] = self.nets.std.detach().mean()
         self._sync()
-        self.learn_time = time.time() - t1
+        self.learn_time = time.perf_counter() - t1
         metrics = {k: float(v) for k, v in metrics.items()}
         episode = dict(zip(self.env.episode_sum_names, logs.pop("episode").tolist()))
         logs = {k: float(v) for k, v in logs.items()}
@@ -232,10 +232,10 @@ class OnPolicyRunner:
         tot_iter = self.current_learning_iteration + num_learning_iterations
         history = []
         for it in range(self.current_learning_iteration, tot_iter):
-            start = time.time()
+            start = time.perf_counter()
             use_adaptation = it % self.dagger_update_freq == 0
             metrics, logs = self.run_iteration(use_adaptation)
-            iter_time = time.time() - start
+            iter_time = time.perf_counter() - start
             ep_window.push(logs["fin_rew_sum"], logs["fin_len_sum"], int(logs["fin_count"]))
             steps = self.num_steps_per_env * self.env.num_envs_global
             self.tot_timesteps += steps

@@ -1,17 +1,28 @@
 """Profiling / tracing utilities, torch port of
 legged_gym_custom_tpu/utils/profiling.py: a torch.profiler trace around a
-block, per-section wall-clock timing synchronized with the card, CUDA-event
-timing of a call on the card, and the card's memory statistics."""
+block, the program's spans, CUDA-event timing of a call on the card, and the
+card's memory statistics."""
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Dict
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 SM_CLOCK_HZ = 1.98e9   # H100 SXM boost clock: sizes the spin that lets the host run ahead
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span `name` around a block of the program: a `record_function` on
+    the profiler's own clock (the one its device events are on) while a
+    torch.profiler records, else one shared null context.  Spans are named
+    `lgc.<layer>[.<phase>]`; with no profiler on, a span costs one check."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -48,36 +59,6 @@ def cuda_time_ms(fn, reps: int, warmup: int = 3, ahead_ms: float = 0.0) -> float
         events.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([start.elapsed_time(end) for start, end in events]))
-
-
-class SectionTimer:
-    """Blocking wall-clock timer for named sections (device-synchronized)."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def section(self, name: str, sync_on=None):
-        """Time the block; with a CUDA tensor as `sync_on`, wait for its
-        device to finish the work queued in the block first."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if isinstance(sync_on, torch.Tensor) and sync_on.is_cuda:
-                torch.cuda.synchronize(sync_on.device)
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals):
-            n = self.counts[name]
-            tot = self.totals[name]
-            lines.append(f"{name}: total {tot:.3f}s, {n}x, mean {tot / n * 1e3:.2f} ms")
-        return "\n".join(lines)
 
 
 def device_memory_stats() -> Dict[str, int]:
