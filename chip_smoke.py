@@ -32,7 +32,8 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                quarter of the bases within 0.3 m of a gap edge and the
                windows cut by `physics.patch.extract`, the stiction build on
                a batch with a quarter of the joints at rest; each output
-               gated at its 99th percentile, and for the stiction builds the
+               (the state, contact forces, torques and the report links'
+               positions and velocities) gated at its 99th percentile, and for the stiction builds the
                (joint, env) entries that end at exactly zero velocity must
                be the same set in kernel and plain version up to 1 %; then
                K1 and K3 again at B = 100 and B = 1000, where the last block
@@ -304,10 +305,11 @@ TOLERANCES = {
     "base_pos": (1e-4, 1e-4), "base_quat": (1e-4, 1e-4), "lin_vel": (1e-3, 1e-3),
     "ang_vel": (1e-3, 1e-3), "dof_pos": (1e-4, 1e-4), "dof_vel": (1e-2, 1e-3),
     "link_forces": (0.05, 1e-3), "torques": (1e-2, 1e-3),
+    "link_pos": (1e-4, 1e-4), "link_vel": (1e-3, 1e-3),
 }
 HF_TOLERANCES = dict(TOLERANCES, dof_vel=(2e-2, 1e-3))
 NAMES = ["base_pos", "base_quat", "lin_vel", "ang_vel", "dof_pos", "dof_vel", "link_forces",
-         "torques"]
+         "torques", "link_pos", "link_vel"]
 DEFAULT_ANGLES = np.array([0.1, 0.8, -1.5, -0.1, 0.8, -1.5, 0.1, 1.0, -1.5, -0.1, 1.0, -1.5])
 
 
@@ -496,7 +498,7 @@ def card_lines():
 
 def check_kernel(label, names, tolerances, out_k, out_p):
     """Log the kernel-vs-plain comparison; returns (ok, max abs error)."""
-    flat = lambda o: (*o[0], o[1], o[2])
+    flat = lambda o: (*o[0], *o[1:])
     rows, ok = compare(names, flat(out_k), flat(out_p), tolerances)
     for name, row in rows.items():
         log(f"[check] {label} {name:12s} max_abs {row['max_abs']:.3e}  "
@@ -517,7 +519,7 @@ def time_kernel(label, spec, args, out_k, plain_reps: int = 5, peaks=None):
     host_ms = cuda_time_ms(call, reps=50)
     plain_ms = cuda_time_ms(lambda: fused_step.plain_control_step(spec, *args),
                             reps=plain_reps, warmup=1)
-    b = kernel_bound(spec, args, (*out_k[0], out_k[1], out_k[2]), peaks)
+    b = kernel_bound(spec, args, (*out_k[0], *out_k[1:]), peaks)
     B = args[1].shape[-1]
     measured = ""
     if peaks:
@@ -620,7 +622,8 @@ def opt_out_check(envs, args, outs, card) -> bool:
         torch.cuda.synchronize()
         ok &= only_launched(f"opt-out control step ({label}'s batch)", name, 0)
         ok &= check_kernel(f"opt-out eager vs {label}", NAMES, tol,
-                           (tuple(st), info.link_forces, info.torques), outs[name])[0]
+                           (tuple(st), info.link_forces, info.torques, info.link_pos,
+                            info.link_vel), outs[name])[0]
         for mode, st_m in outs_m.items():
             finite = all(bool(torch.isfinite(x).all()) for x in st_m)
             params = modes[mode]
@@ -647,15 +650,18 @@ def opt_out_check(envs, args, outs, card) -> bool:
     return ok
 
 
-def only_launched(what: str, variant: str, expected: int) -> bool:
+def only_launched(what: str, variant: str, expected: int, links: int = None) -> bool:
     """True when `variant` launched `expected` times since the counters were
-    set to 0, and no other variant at all."""
+    set to 0, `links` of them (all by default) writing the link states, and
+    no other variant at all."""
     from legged_gym_custom_tpu_torch.ops import fused_step
 
     counts = fused_step.launch_counts()
-    log(f"[launches] {what}: {json.dumps(counts)}; expected {variant} {expected}, the rest 0")
-    ok = counts.get(variant, 0) == expected and all(
-        n == 0 for name, n in counts.items() if name != variant)
+    links = expected if links is None else links
+    mine = {variant: expected, variant + fused_step.LINK_STATES: links}
+    log(f"[launches] {what}: {json.dumps(counts)}; expected {json.dumps(mine)}, the rest 0")
+    ok = all(counts.get(name, 0) == n for name, n in mine.items()) and all(
+        n == 0 for name, n in counts.items() if name not in mine)
     if not ok:
         log(f"[launches] FAIL: {what} did not launch {variant} once per env step, and only it")
     return ok
@@ -703,7 +709,7 @@ def train_task(task: str, variant: str, iterations: int = TRAIN_ITERATIONS, firs
             f"env-steps/s (collection {h['collection_s']:.3f}s, learning "
             f"{h['learning_s']:.3f}s){level}")
     log(f"[train] {label}: {len(history)} iterations in {train_s:.1f}s")
-    if not only_launched(label, variant, expected):
+    if not only_launched(label, variant, expected, expected // ticks if ticks else 0):
         return None
     losses = [v for h in history for k, v in h.items() if k.endswith("loss")]
     if len(history) != iterations or not all(np.isfinite(losses)) or not losses:
@@ -1433,12 +1439,14 @@ def other_robots_phase(device, card, envs, specs, names, peaks, pair_kernels):
                                                      spec=env.fused_spec)
         torch.cuda.synchronize()
         ok &= only_launched(f"{task} tick-wise step", fused_step.variant_name(specs[task]),
-                            env.fused_spec.decimation)
+                            env.fused_spec.decimation, 1)
         st_e, info_e, act_e = phys.engine._eager_loop(*args, env._torque_fn, act)
         tol = dict(lstm_tol, dof_vel=HF_TOLERANCES["dof_vel"]) if env.fused_spec.hf_K else lstm_tol
         names_b = NAMES + ["lstm_hidden", "lstm_cell"]
-        rows, ok_b = compare(names_b, (*st, info.link_forces, info.torques, *act_k),
-                             (*st_e, info_e.link_forces, info_e.torques, *act_e), tol)
+        rows, ok_b = compare(names_b, (*st, info.link_forces, info.torques, info.link_pos,
+                                       info.link_vel, *act_k),
+                             (*st_e, info_e.link_forces, info_e.torques, info_e.link_pos,
+                              info_e.link_vel, *act_e), tol)
         for name, row in rows.items():
             log(f"[tickwise] {task} {name:12s} max_abs {row['max_abs']:.3e}  p99 err/tol "
                 f"{row['p99_tol_ratio']:.3f}  {'ok' if row['pass'] else 'FAIL'}")
@@ -1791,7 +1799,9 @@ def distributed_phase(card: str, go2_history) -> int:
                 f"{rk['params_sha256'][:16]}, losses finite {rk['losses_finite']}")
         ok = (r["backend"] == backend and r["device"] == "cuda:0"
               and r["process_count"] == world == len(r["ranks"])
-              and all(rk["launches"] == {"fused_control_step": expected} for rk in r["ranks"])
+              and all(rk["launches"] == {"fused_control_step": expected,
+                                         "fused_control_step.link_states": expected}
+                      for rk in r["ranks"])
               and all(rk["losses_finite"] for rk in r["ranks"]) and np.isfinite(r["value_loss"])
               and r["restored_iteration"] == DIST_ITERATIONS + DIST_WARMUP
               and r["params_bit_equal"])
@@ -1855,7 +1865,8 @@ def train_ranks_run(label, argv, variant, iterations, first_iteration, log_root,
         f"run {wall:.1f}s | {card}")
     ok = (report.get("world_size") == TRAIN_RANKS and report.get("backend") == "gloo"
           and report.get("iteration") == last and report.get("params_bit_equal")
-          and all(rk["launches"] == {variant: expected} and rk["losses_finite"]
+          and all(rk["launches"] == {variant: expected, variant + ".link_states": expected}
+                  and rk["losses_finite"]
                   and rk["device"] == "cuda:0"
                   for rk in report["ranks"])
           and len(new) == 1 and report.get("log_dir") == os.path.join(log_root, new[0])
@@ -2129,7 +2140,8 @@ def main() -> int:
     name = "fused_control_step"
     for label in (one_lane, four_lanes):
         out = fused_step.launch_kernel(other_kernels[label], specs[name], *args[name])
-        out = (out[:6], out[6].view(specs[name].n_links, 3, NUM_ENVS), out[7])
+        rows = lambda t: t.view(specs[name].n_links, 3, NUM_ENVS)
+        out = (out[:6], rows(out[6]), out[7], rows(out[8]), rows(out[9]))
         ok &= check_kernel(f"{label}, against the wrapper's layout", NAMES, TOLERANCES, out,
                            outs[name])[0]
     # the test tree: padded slots, an empty lane, parents that differ by lane,

@@ -21,8 +21,12 @@
 // torques, each followed by `substeps` semi-implicit Euler substeps of
 // forward kinematics, penalty contact with regularized Coulomb friction,
 // joint-limit / viscous / tanh-frictionloss torques and the articulated-body
-// algorithm with armature and a 6x6 base solve by 3x3 Schur blocks.  Device
-// memory sees only (C, B) fp32 rows in and out (and for K3 each env's window).
+// algorithm with armature and a 6x6 base solve by 3x3 Schur blocks.  After
+// the last substep one more outward kinematics pass over the final state
+// writes the report links' world positions and linear velocities (the
+// reference's link_states, which it runs in XLA after its kernel); a launch
+// given null link-state outputs skips it.  Device memory sees only (C, B)
+// fp32 rows in and out (and for K3 each env's window).
 //
 // What bounds it on this card.  By the count of operations against bytes the
 // step is bound by operations (some 10^5 fp32 operations against ~180 floats
@@ -135,14 +139,17 @@ __device__ const int ITAB_INIT[ITAB_N] = LGC_P_ITAB;
   LGC_PLAN_FIELD(ARM) LGC_PLAN_FIELD(FL) LGC_PLAN_FIELD(PG) LGC_PLAN_FIELD(DG)     \
   LGC_PLAN_FIELD(DPOS) LGC_PLAN_FIELD(TLIM) LGC_PLAN_FIELD(LO) LGC_PLAN_FIELD(HI)  \
   LGC_PLAN_FIELD(VLIM) LGC_PLAN_FIELD(DQD) LGC_PLAN_FIELD(GPOS)                    \
-  LGC_PLAN_FIELD(GRAD)                                                             \
+  LGC_PLAN_FIELD(GRAD) LGC_PLAN_FIELD(LPOS)                                        \
   constexpr int PSLOT[D] = LGC_P_PSLOT;                                            \
   constexpr int FIRST[D] = LGC_P_FIRST;                                            \
   constexpr int HAS_CHILD[D] = LGC_P_HAS_CHILD;                                    \
   constexpr int ROTK[D] = LGC_P_ROTK;                                              \
   constexpr int NSPH[D] = LGC_P_NSPH;                                              \
   constexpr int ENT0[D] = LGC_P_ENT0;                                              \
-  (void)PSLOT; (void)FIRST; (void)HAS_CHILD; (void)ROTK; (void)NSPH; (void)ENT0;
+  constexpr int NLS[D] = LGC_P_NLS;                                                \
+  constexpr int LS0[D] = LGC_P_LS0;                                                \
+  (void)PSLOT; (void)FIRST; (void)HAS_CHILD; (void)ROTK; (void)NSPH; (void)ENT0;   \
+  (void)NLS; (void)LS0;
 
 // Constant F, scalar i, as this lane reads it: the slot's shared value (the
 // index is known once the slot loop is unrolled, so this folds) or the lane's
@@ -461,6 +468,81 @@ __device__ __forceinline__ void give(float (*acc)[N], int s, int ps, bool first,
 }
 
 // ---------------------------------------------------------------------------
+// The outward kinematics (reference forward_kinematics), shared by the
+// substep and the link-state pass.  `base_frame`: the base's rotation R
+// (world <- base), E0b = R^T and spatial velocity v0 in base coords.
+// `parent_slots`: each slot's parent slot.  `slot_kinematics`: slot s's
+// joint (c, s) and, for a dense joint, E_up; its body's rotation E0 (body
+// <- world), origin p0 relative to the base origin in world axes, and
+// spatial velocity v in body coords with the joint's velocity added.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void base_frame(const float* quat, const float* lin, const float* ang,
+                                           float* R, float* E0b, float* v0) {
+  const float w = quat[0], x = quat[1], y = quat[2], z = quat[3];
+  R[0] = 1.f - 2.f * (y * y + z * z); R[1] = 2.f * (x * y - w * z); R[2] = 2.f * (x * z + w * y);
+  R[3] = 2.f * (x * y + w * z); R[4] = 1.f - 2.f * (x * x + z * z); R[5] = 2.f * (y * z - w * x);
+  R[6] = 2.f * (x * z - w * y); R[7] = 2.f * (y * z + w * x); R[8] = 1.f - 2.f * (x * x + y * y);
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) E0b[3 * r + c] = R[3 * c + r];
+  mtv3(R, ang, v0);
+  mtv3(R, lin, v0 + 3);
+}
+
+__device__ __forceinline__ void parent_slots(const int* itab, int lane, int* ps) {
+  LGC_PLAN_CONSTANTS
+  constexpr bool UNIFORM = LGC_P_PSLOT_UNIFORM;
+  (void)itab;
+#pragma unroll
+  for (int s = 0; s < D; ++s) ps[s] = UNIFORM ? PSLOT[s] : itab[(LGC_P_ROW_PSLOT + s) * G + lane];
+}
+
+__device__ __forceinline__ void slot_kinematics(int s, int ps, const float* E0b, const float* v0,
+                                                const float* q, const float* qd,
+                                                const float* ftab, int lane, float (*E0)[9],
+                                                float (*p0)[3], float (*Eup)[9], float* rc,
+                                                float* rs, float (*v)[6]) {
+  LGC_PLAN_CONSTANTS
+  const int k = ROTK[s];
+  const float zero3[3] = {0.f, 0.f, 0.f};
+  float Ep[9], pp[3], vp[6];
+  pick<9>(Ep, E0b, E0, s, ps);
+  pick<3>(pp, zero3, p0, s, ps);
+  pick<6>(vp, v0, v, s, ps);
+  const float a[3] = {LC(AXIS, 3 * s), LC(AXIS, 3 * s + 1), LC(AXIS, 3 * s + 2)};
+  sincosf(q[s], &rs[s], &rc[s]);
+  if (k < 0) {
+    const float cq = rc[s], sq = rs[s];
+    const float ax[9] = {0.f, -a[2], a[1], a[2], 0.f, -a[0], -a[1], a[0], 0.f};
+    float Ej[9], JR[9];  // E_j = R(axis, q)^T
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        Ej[3 * c + r] = (r == c ? cq : 0.f) + sq * ax[3 * r + c] + (1.f - cq) * (a[r] * a[c]);
+#pragma unroll
+    for (int t = 0; t < 9; ++t) JR[t] = LC(JROT, 9 * s + t);
+    mm3(Ej, JR, Eup[s]);
+  }
+  rot_mm(k, rc[s], rs[s], Eup[s], Ep, E0[s]);
+  const float jp[3] = {LC(JPOS, 3 * s), LC(JPOS, 3 * s + 1), LC(JPOS, 3 * s + 2)};
+  float t3[3];
+  mtv3(Ep, jp, t3);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) p0[s][i] = pp[i] + t3[i];
+  xform_motion(k, rc[s], rs[s], Eup[s], jp, vp, v[s]);
+  // the joint's velocity a qd
+  if (k >= 0) {
+    v[s][k] += qd[s];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) v[s][i] += a[i] * qd[s];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // One sphere entry of a body at (E0, p0, v): adds its (torque, force), world
 // axes about the body origin, to w6 and, in the last tick, its force to the
 // entry's link-force sum.  K3 reads the tick's frozen surface from the
@@ -546,61 +628,21 @@ __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, flo
   (void)itab;
 
   // base rotation (world <- base) and spatial velocity in base coords
-  float R[9];
-  {
-    const float w = quat[0], x = quat[1], y = quat[2], z = quat[3];
-    R[0] = 1.f - 2.f * (y * y + z * z); R[1] = 2.f * (x * y - w * z); R[2] = 2.f * (x * z + w * y);
-    R[3] = 2.f * (x * y + w * z); R[4] = 1.f - 2.f * (x * x + z * z); R[5] = 2.f * (y * z - w * x);
-    R[6] = 2.f * (x * z - w * y); R[7] = 2.f * (y * z + w * x); R[8] = 1.f - 2.f * (x * x + y * y);
-  }
-  float E0b[9], v0[6];
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) E0b[3 * r + c] = R[3 * c + r];
-  mtv3(R, ang, v0);
-  mtv3(R, lin, v0 + 3);
+  float R[9], E0b[9], v0[6];
+  base_frame(quat, lin, ang, R, E0b, v0);
   const float zero3[3] = {0.f, 0.f, 0.f};
-
   int ps[D];   // parent slot of each slot
-#pragma unroll
-  for (int s = 0; s < D; ++s) ps[s] = UNIFORM ? PSLOT[s] : itab[(LGC_P_ROW_PSLOT + s) * G + lane];
+  parent_slots(itab, lane, ps);
 
   // ---- outward: kinematics, each body's contacts, bias force and joint torque
   float E0[D][9], p0[D][3], Eup[D][9], rc[D], rs[D], v[D][6], cb[D][6], pA[D][6], tt[D];
 #pragma unroll
   for (int s = 0; s < D; ++s) {
     const int k = ROTK[s];
-    float Ep[9], pp[3], vp[6];
-    pick<9>(Ep, E0b, E0, s, ps[s]);
-    pick<3>(pp, zero3, p0, s, ps[s]);
-    pick<6>(vp, v0, v, s, ps[s]);
-    float a[3] = {LC(AXIS, 3 * s), LC(AXIS, 3 * s + 1), LC(AXIS, 3 * s + 2)};
-    sincosf(q[s], &rs[s], &rc[s]);
-    if (k < 0) {
-      const float cq = rc[s], sq = rs[s];
-      const float ax[9] = {0.f, -a[2], a[1], a[2], 0.f, -a[0], -a[1], a[0], 0.f};
-      float Ej[9], JR[9];  // E_j = R(axis, q)^T
-#pragma unroll
-      for (int r = 0; r < 3; ++r)
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          Ej[3 * c + r] = (r == c ? cq : 0.f) + sq * ax[3 * r + c] + (1.f - cq) * (a[r] * a[c]);
-#pragma unroll
-      for (int t = 0; t < 9; ++t) JR[t] = LC(JROT, 9 * s + t);
-      mm3(Ej, JR, Eup[s]);
-    }
-    rot_mm(k, rc[s], rs[s], Eup[s], Ep, E0[s]);
-    const float jp[3] = {LC(JPOS, 3 * s), LC(JPOS, 3 * s + 1), LC(JPOS, 3 * s + 2)};
-    float t3[3];
-    mtv3(Ep, jp, t3);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) p0[s][i] = pp[i] + t3[i];
-    xform_motion(k, rc[s], rs[s], Eup[s], jp, vp, v[s]);
-    // joint velocity a qd, and c = v x [a qd; 0]
+    slot_kinematics(s, ps[s], E0b, v0, q, qd, ftab, lane, E0, p0, Eup, rc, rs, v);
+    // c = v x [a qd; 0]
     if (k >= 0) {
       const int i = (k + 1) % 3, j = (k + 2) % 3;
-      v[s][k] += qd[s];
       cb[s][k] = 0.f;
       cb[s][i] = v[s][j] * qd[s];
       cb[s][j] = -(v[s][i] * qd[s]);
@@ -610,10 +652,7 @@ __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, flo
     } else {
       float aq[3];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        aq[i] = a[i] * qd[s];
-        v[s][i] += aq[i];
-      }
+      for (int i = 0; i < 3; ++i) aq[i] = LC(AXIS, 3 * s + i) * qd[s];
       cross3(v[s], aq, cb[s]);
       cross3(v[s] + 3, aq, cb[s] + 3);
     }
@@ -1106,8 +1145,68 @@ __device__ __forceinline__ void substep(float* pos, float* quat, float* lin, flo
 }
 
 // ---------------------------------------------------------------------------
+// The link states of the final state (reference link_states): one more
+// outward pass, and each link-state entry of a lane's slot (or of the base)
+// writes its link's world position base_pos + p0 + E0^T l and linear
+// velocity E0^T (u + w x l), with l the link frame's origin in its body's
+// frame.  The lane plan gives every link to exactly one lane that holds its
+// body.  No shuffles: the lanes need not meet.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void link_state(int e, const float* E0, const float* p0, const float* v,
+                                           const float* pos, const float* ftab, const int* itab,
+                                           int lane, bool live, int n, int B,
+                                           float* __restrict__ lpos_out,
+                                           float* __restrict__ lvel_out) {
+  LGC_PLAN_CONSTANTS
+  const int l = itab[(LGC_P_ROW_LSLINK + e) * G + lane];
+  if (!live || l < 0) return;
+  const float lp[3] = {LC(LPOS, 3 * e), LC(LPOS, 3 * e + 1), LC(LPOS, 3 * e + 2)};
+  float off[3], wxl[3], vel_b[3], vel_w[3];
+  mtv3(E0, lp, off);
+  cross3(v, lp, wxl);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) vel_b[k] = v[3 + k] + wxl[k];
+  mtv3(E0, vel_b, vel_w);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    lpos_out[(3 * l + k) * B + n] = pos[k] + p0[k] + off[k];
+    lvel_out[(3 * l + k) * B + n] = vel_w[k];
+  }
+}
+
+__device__ __forceinline__ void link_states(const float* pos, const float* quat, const float* lin,
+                                            const float* ang, const float* q, const float* qd,
+                                            const float* ftab, const int* itab, int lane,
+                                            bool live, int n, int B,
+                                            float* __restrict__ lpos_out,
+                                            float* __restrict__ lvel_out) {
+  LGC_PLAN_CONSTANTS
+  float R[9], E0b[9], v0[6];
+  base_frame(quat, lin, ang, R, E0b, v0);
+  int ps[D];
+  parent_slots(itab, lane, ps);
+  float E0[D][9], p0[D][3], Eup[D][9], rc[D], rs[D], v[D][6];
+#pragma unroll
+  for (int s = 0; s < D; ++s) {
+    slot_kinematics(s, ps[s], E0b, v0, q, qd, ftab, lane, E0, p0, Eup, rc, rs, v);
+#pragma unroll
+    for (int i = 0; i < LGC_P_MAX_NLS; ++i)
+      if (i < NLS[s])
+        link_state(LS0[s] + i, E0[s], p0[s], v[s], pos, ftab, itab, lane, live, n, B, lpos_out,
+                   lvel_out);
+  }
+  const float zero3[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < LGC_P_NLS_BASE; ++i)
+    link_state(LGC_P_LS0_BASE + i, E0b, zero3, v0, pos, ftab, itab, lane, live, n, B, lpos_out,
+               lvel_out);
+}
+
+// ---------------------------------------------------------------------------
 // The kernel: G lanes per env, (C, B) fp32 rows in and out; for K3 also each
-// env's (K, K) window (batch-leading) and its offsets xoff, yoff (B,)
+// env's (K, K) window (batch-leading) and its offsets xoff, yoff (B,); the
+// link states (3 nl, B) when their pointers are not null
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(BLOCK)
@@ -1122,7 +1221,8 @@ fused_control_step_kernel(const float* __restrict__ pos_in, const float* __restr
                           float* __restrict__ quat_out, float* __restrict__ lin_out,
                           float* __restrict__ ang_out, float* __restrict__ q_out,
                           float* __restrict__ qd_out, float* __restrict__ lf_out,
-                          float* __restrict__ tau_out, int B) {
+                          float* __restrict__ tau_out, float* __restrict__ lpos_out,
+                          float* __restrict__ lvel_out, int B) {
   LGC_PLAN_CONSTANTS
   extern __shared__ __align__(16) float smem[];
   float* ftab = smem;                                       // lane table [row][lane]
@@ -1267,6 +1367,9 @@ fused_control_step_kernel(const float* __restrict__ pos_in, const float* __restr
   constexpr float inv_ns = 1.0f / LGC_SUBSTEPS;
   if (live)
     for (int i = lane; i < 3 * NL; i += G) lf_out[i * B + n] = lf_env[i] * inv_ns;
+
+  if (lpos_out != nullptr)
+    link_states(pos, quat, lin, ang, q, qd, ftab, itab, lane, live, n, B, lpos_out, lvel_out);
 }
 
 static cudaError_t allow_shared_memory() {
@@ -1282,9 +1385,10 @@ extern "C" int lgc_fused_control_step(const float* pos, const float* quat, const
                                       const float* co, const float* kp, const float* kd,
                                       const float* patch, const float* xoff, const float* yoff,
                                       float* opos, float* oquat, float* olin, float* oang,
-                                      float* oq, float* oqd, float* olf, float* otau, int B,
-                                      void* stream) {
+                                      float* oq, float* oqd, float* olf, float* otau,
+                                      float* olpos, float* olvel, int B, void* stream) {
   if (B <= 0) return 0;
+  if ((olpos == nullptr) != (olvel == nullptr)) return cudaErrorInvalidValue;
 #if LGC_HF_K
   if (patch == nullptr || xoff == nullptr || yoff == nullptr) return cudaErrorInvalidValue;
 #endif
@@ -1293,7 +1397,7 @@ extern "C" int lgc_fused_control_step(const float* pos, const float* quat, const
   const int grid = (B + EPB - 1) / EPB;
   fused_control_step_kernel<<<grid, BLOCK, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       pos, quat, lin, ang, q, qd, act, fric, am, co, kp, kd, patch, xoff, yoff, opos, oquat, olin,
-      oang, oq, oqd, olf, otau, B);
+      oang, oq, oqd, olf, otau, olpos, olvel, B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,12 +17,15 @@ specialises at trace time and this port at build time:
     toward zero, which holds a joint at rest exactly.
 One launch runs a whole 50 Hz control step, decimation x substeps of PD
 torques, forward kinematics, penalty contact, joint-limit and passive
-torques, ABA with armature and semi-implicit Euler.  A group of G lanes of a
+torques, ABA with armature and semi-implicit Euler, then one more forward
+kinematics pass that writes the report links' world positions and linear
+velocities (the reference computes these `link_states` in XLA after its
+kernel); a launch without link-state outputs skips that pass.  A group of G lanes of a
 warp runs one env, each lane one branch of the kinematic tree under the base
 (`ops/lane_plan.py::lane_plan`, host numpy), with the state held in registers
 and shared memory across all substeps.  Device memory traffic is the state,
 actions and DR parameters (and for K3 each env's window and its offsets) in
-and the state, link forces and torques out.
+and the state, link forces, torques and link states out.
 
 The model constants are baked into the kernel at build time from a
 `FusedSpec` (built host-side in numpy, as the reference's fix 841adc9
@@ -135,6 +138,11 @@ class FusedSpec(NamedTuple):
     # mode no variant covers, which `check_covered` refuses; JAX's spec has
     # no such field and its wrapper falls back to XLA instead
     terrain_tick_sample: bool = True
+    # the port's own: the report links' bodies and frame origins in their
+    # bodies' frames (ModelArrays.link_body / link_pos), whose world states
+    # the kernel writes after the last substep; JAX computes them in XLA
+    link_body: tuple = ()   # (n_links,)
+    link_pos: tuple = ()    # (n_links, 3)
 
 
 def _np(x):
@@ -212,6 +220,8 @@ def build_spec(ma, params, pd, dof_limits, hf_K: int = 0, hf_hs: float = 0.0) ->
         dof_lo=_t(dof_limits[0]),
         dof_hi=_t(dof_limits[1]),
         dof_vlim=_t(dof_limits[2]),
+        link_body=tuple(int(b) for b in _np(ma.link_body)),
+        link_pos=_t(ma.link_pos),
     )
 
 
@@ -244,6 +254,9 @@ def check_covered(spec: FusedSpec):
     ndof = len(spec.parent) - 1
     if spec.fl_dqd and len(spec.fl_dqd) != ndof:
         raise ValueError(f"fl_dqd needs {ndof} entries, got {len(spec.fl_dqd)}")
+    if len(spec.link_body) != spec.n_links or len(spec.link_pos) != spec.n_links:
+        raise ValueError(f"link_body and link_pos need {spec.n_links} entries (n_links), got "
+                         f"{len(spec.link_body)} and {len(spec.link_pos)}")
     if spec.hf_K and (spec.hf_K < 2 or spec.hf_hs <= 0.0):
         raise ValueError(f"heightfield spec needs hf_K >= 2 and hf_hs > 0, got "
                          f"{spec.hf_K}, {spec.hf_hs}")
@@ -463,31 +476,24 @@ def _tile_surface(spec: FusedSpec, terrain, cx, cy):
     return h, -dhdx * inv_norm, -dhdy * inv_norm, inv_norm
 
 
-def _substep_components(spec: FusedSpec, st, tau, friction, inertias, terrain=None,
-                        surface=None):
-    """One semi-implicit Euler substep on component lists: plane contact, or
-    on a heightfield (spec.hf_K > 0) contact against `surface`, the per-geom
-    (h, nx, ny, nz) list frozen for the current decimation tick; None means
-    "sample now from this substep's kinematics" (terrain_tick_sample).
-    Returns (st', link_force [n_links][3], surface)."""
+def _outward_components(spec: FusedSpec, st):
+    """Forward kinematics on component lists (reference `_substep_components`'
+    outward pass): the base rotation R_wb0 (world <- base), the base's
+    angular and linear velocity w_b, u_b in base coords, and per body its
+    rotation E0 (body <- world), origin p0 relative to the base origin in
+    world axes, joint rotation E_up (child <- parent) and spatial velocity v
+    in body coords with the joint's velocity added."""
     nb = len(spec.parent)
-    ndof = nb - 1
-    dt = spec.dt / spec.substeps
-
-    # base spatial velocity in base coords
     R_wb0 = _quat_to_matrix(st["quat"])
     w_b = _mtv(R_wb0, st["ang"])
     u_b = _mtv(R_wb0, st["lin"])
-    v_base = w_b + u_b
-
-    # forward kinematics
     E0 = [None] * nb
     p0 = [None] * nb
     E_up = [None] * nb
     v = [None] * nb
     E0[0] = [[R_wb0[j][i] for j in range(3)] for i in range(3)]
     p0[0] = [0.0, 0.0, 0.0]
-    v[0] = v_base
+    v[0] = w_b + u_b
     for i in range(1, nb):
         p = spec.parent[i]
         q = st["q"][i - 1]
@@ -507,6 +513,35 @@ def _substep_components(spec: FusedSpec, st, tau, friction, inertias, terrain=No
         vi = _xform_motion(E_up[i], jp, v[p])
         qd = st["qd"][i - 1]
         v[i] = [_add(vi[k], _mul(axis[k], qd)) for k in range(3)] + vi[3:6]
+    return R_wb0, w_b, u_b, E0, p0, E_up, v
+
+
+def link_states_components(spec: FusedSpec, st):
+    """World positions and linear velocities of the report links on
+    component lists (the kernel's last outward pass; engine.link_states'
+    math): pos = base_pos + p0[b] + E0[b]^T link_pos, vel = E0[b]^T (u_b +
+    w_b x link_pos) for each link's body b.  Returns (pos, vel), [nl][3]."""
+    _, _, _, E0, p0, _, v = _outward_components(spec, st)
+    pos, vel = [], []
+    for b, lp in zip(spec.link_body, spec.link_pos):
+        lp = list(lp)
+        off = _mtv(E0[b], lp)
+        pos.append([_add(_add(st["pos"][k], p0[b][k]), off[k]) for k in range(3)])
+        vel.append(_mtv(E0[b], _vadd(v[b][3:6], _cross(v[b][0:3], lp))))
+    return pos, vel
+
+
+def _substep_components(spec: FusedSpec, st, tau, friction, inertias, terrain=None,
+                        surface=None):
+    """One semi-implicit Euler substep on component lists: plane contact, or
+    on a heightfield (spec.hf_K > 0) contact against `surface`, the per-geom
+    (h, nx, ny, nz) list frozen for the current decimation tick; None means
+    "sample now from this substep's kinematics" (terrain_tick_sample).
+    Returns (st', link_force [n_links][3], surface)."""
+    nb = len(spec.parent)
+    ndof = nb - 1
+    dt = spec.dt / spec.substeps
+    R_wb0, w_b, u_b, E0, p0, E_up, v = _outward_components(spec, st)
 
     # penalty contact: the plane, or the tick's frozen heightfield surface
     ng = len(spec.geom_body)
@@ -726,11 +761,13 @@ def control_step_components(spec: FusedSpec, st, actions, friction, added_mass, 
     return st, lf_mean, tau
 
 
-def plain_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
-    """`control_step_components` on (C, B) tensors, returning the wrapper's
-    output layout: ((pos, quat, lin, ang, q, qd), link_forces (nl, 3, B),
-    torques (ndof, B)).  terrain: (patch (B, K, K), xoff (B,), yoff (B,))
-    for a heightfield spec, else None."""
+def plain_control_step(spec: FusedSpec, state, actions, dr, terrain=None, link_states=True):
+    """`control_step_components` on (C, B) tensors, then, with
+    `link_states`, `link_states_components` on its final state; returns the
+    wrapper's output layout: ((pos, quat, lin, ang, q, qd), link_forces
+    (nl, 3, B), torques (ndof, B), link_pos (nl, 3, B), link_vel (nl, 3, B)),
+    the last two None without `link_states`.  terrain: (patch (B, K, K),
+    xoff (B,), yoff (B,)) for a heightfield spec, else None."""
     pos, quat, lin, ang, q, qd = state
     friction, added_mass, com_offset, kp_mult, kd_mult = dr
     st = dict(pos=list(pos), quat=list(quat), lin=list(lin), ang=list(ang),
@@ -746,8 +783,11 @@ def plain_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
     full = lambda x: x if isinstance(x, torch.Tensor) else zeros + x
     out_state = tuple(torch.stack([full(c) for c in st[k]])
                       for k in ("pos", "quat", "lin", "ang", "q", "qd"))
-    link_forces = torch.stack([torch.stack([full(c) for c in row]) for row in lf])
-    return out_state, link_forces, torch.stack(tau)
+    rows = lambda m: torch.stack([torch.stack([full(c) for c in row]) for row in m])
+    if not link_states:
+        return out_state, rows(lf), torch.stack(tau), None, None
+    lpos, lvel = link_states_components(spec, st)
+    return out_state, rows(lf), torch.stack(tau), rows(lpos), rows(lvel)
 
 
 # --------------------------------------------------------------------------
@@ -937,7 +977,8 @@ class KernelBuild:
         ptxas, build_seconds = self.build.wait()
         lib = ctypes.CDLL(self.build.lib_path)
         # 12 inputs, the K3 window and its offsets (null for K1), 8 outputs
-        lib.lgc_fused_control_step.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int,
+        # and the two link-state outputs (null to skip the link pass)
+        lib.lgc_fused_control_step.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int,
                                                                          ctypes.c_void_p]
         lib.lgc_fused_control_step.restype = ctypes.c_int
         lib.lgc_cuda_error_string.argtypes = [ctypes.c_int]
@@ -1038,32 +1079,36 @@ def _check_inputs(spec: FusedSpec, state, actions, dr, terrain):
     return B, device
 
 
-def launch_kernel(kernel: FusedKernel, spec: FusedSpec, state, actions, dr, terrain=None):
+def launch_kernel(kernel: FusedKernel, spec: FusedSpec, state, actions, dr, terrain=None,
+                  link_states=True):
     """Launch a built kernel on checked CUDA inputs, on the current stream;
-    returns the 8 output tensors.  Counts nothing: `fused_control_step` is
-    the wrapper, this is also how a build of another layout is timed."""
+    returns the 10 output tensors, the last two (link positions and
+    velocities, (3 nl, B)) None without `link_states`, where the kernel
+    skips its link pass.  Counts nothing: `fused_control_step` is the
+    wrapper, this is also how a build of another layout is timed."""
     B, device = actions.shape[-1], actions.device
     ndof = len(spec.parent) - 1
     empty = lambda c: torch.empty((c, B), dtype=torch.float32, device=device)
     outs = (empty(3), empty(4), empty(3), empty(3), empty(ndof), empty(ndof),
             empty(3 * spec.n_links), empty(ndof))
+    links = (empty(3 * spec.n_links), empty(3 * spec.n_links)) if link_states else (None, None)
     ins = (*state, actions, *dr)
     terrain_ptrs = [t.data_ptr() for t in terrain] if spec.hf_K else [None] * 3
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = kernel.lib.lgc_fused_control_step(
-            *[t.data_ptr() for t in ins], *terrain_ptrs, *[t.data_ptr() for t in outs], B,
-            stream
+            *[t.data_ptr() for t in ins], *terrain_ptrs, *[t.data_ptr() for t in outs],
+            *[None if t is None else t.data_ptr() for t in links], B, stream
         )
     if err != 0:
         raise RuntimeError(
             "fused control-step kernel launch failed: "
             + kernel.lib.lgc_cuda_error_string(err).decode()
         )
-    return outs
+    return (*outs, *links)
 
 
-def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
+def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None, link_states=True):
     """One control step for B envs.
 
     state: (pos (3,B), quat (4,B), lin (3,B), ang (3,B), q (ndof,B), qd (ndof,B));
@@ -1071,34 +1116,43 @@ def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
     kp_mult (ndof,B), kd_mult (ndof,B)); terrain, for a heightfield spec:
     (patch (B,K,K), xoff (B,), yoff (B,)) as `patch_inputs` gives them; all
     float32 and contiguous.
-    Returns ((pos, quat, lin, ang, q, qd), link_forces (nl,3,B), torques (ndof,B)).
+    Returns ((pos, quat, lin, ang, q, qd), link_forces (nl,3,B), torques (ndof,B),
+    link_pos (nl,3,B), link_vel (nl,3,B)): the report links' world positions
+    and linear velocities at the final state (physics.engine.link_states'
+    math), both None when `link_states` is False, which skips that pass.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel, in the
     layout `lanes_for_batch` picks for B, on the current stream, adding one
-    to the variant's counter (`launch_counts`), or raise.
+    to the variant's counter (`launch_counts`), and with `link_states` one to
+    its link-state counter, or raise.
     """
     check_covered(spec)
     B, device = _check_inputs(spec, state, actions, dr, terrain)
     if device.type == "cpu":
-        return plain_control_step(spec, state, actions, dr, terrain)
+        return plain_control_step(spec, state, actions, dr, terrain, link_states)
     if device.type != "cuda":
         raise RuntimeError(f"fused_control_step: unsupported device {device}")
     kernel = load_kernel(spec, B)
-    outs = launch_kernel(kernel, spec, state, actions, dr, terrain)
+    outs = launch_kernel(kernel, spec, state, actions, dr, terrain, link_states)
+    name = variant_name(spec)
     if spec.control_type == "T" or spec.fl_dqd:
-        name = variant_name(spec)
         fused_control_step.k2_launches[name] = fused_control_step.k2_launches.get(name, 0) + 1
     elif spec.hf_K:
         fused_control_step.hf_launches += 1
     else:
         fused_control_step.launches += 1
-    opos, oquat, olin, oang, oq, oqd, olf, otau = outs
-    return (opos, oquat, olin, oang, oq, oqd), olf.view(spec.n_links, 3, B), otau
+    if link_states:
+        counts = fused_control_step.link_launches
+        counts[name] = counts.get(name, 0) + 1
+    opos, oquat, olin, oang, oq, oqd, olf, otau, olpos, olvel = outs
+    rows = lambda t: None if t is None else t.view(spec.n_links, 3, B)
+    return (opos, oquat, olin, oang, oq, oqd), rows(olf), otau, rows(olpos), rows(olvel)
 
 
 fused_control_step.launches = 0      # K1, the plane variant
 fused_control_step.hf_launches = 0   # K3, the heightfield variant
 fused_control_step.k2_launches = {}  # K2: `variant_name` -> launches
+fused_control_step.link_launches = {}  # `variant_name` -> launches that wrote link states
 
 
 def variant_name(spec: FusedSpec) -> str:
@@ -1109,14 +1163,22 @@ def variant_name(spec: FusedSpec) -> str:
             + ("_stiction" if spec.fl_dqd else "") + ("_hf" if spec.hf_K else ""))
 
 
+LINK_STATES = ".link_states"   # suffix of a variant's link-state counter
+
+
 def launch_counts() -> dict:
-    """Launches so far of every variant that has a counter, by `variant_name`."""
+    """Launches so far of every variant that has a counter, by `variant_name`,
+    and under `variant_name + LINK_STATES` those of them that wrote the link
+    states (all of a control step's launch; the last tick's of a tick-wise
+    step)."""
     return {"fused_control_step": fused_control_step.launches,
             "fused_control_step_hf": fused_control_step.hf_launches,
-            **fused_control_step.k2_launches}
+            **fused_control_step.k2_launches,
+            **{name + LINK_STATES: n for name, n in fused_control_step.link_launches.items()}}
 
 
 def reset_launch_counts() -> None:
     fused_control_step.launches = 0
     fused_control_step.hf_launches = 0
     fused_control_step.k2_launches = {}
+    fused_control_step.link_launches = {}

@@ -17,6 +17,11 @@ The base's own spheres are dealt round over all G lanes.  G is the number
 of branches times L, rounded up to a power of two (the lanes combine by
 butterfly shuffles); the extra lanes are masked throughout.
 
+The report links (`spec.link_body`, `spec.link_pos`), whose world positions
+and velocities the kernel writes after the last substep, are dealt the same
+way: a body's links, every L-th to a lane of its branch, on its slot; the
+base's round over all G lanes.  Each link is written by exactly one lane.
+
 A model constant that every lane shares at a slot (on a quadruped: the joint
 axes, the masses, most joint offsets' zeros) stays a compile-time constant of
 that slot, so its zeros and ones still fold; one that differs by lane (the
@@ -40,6 +45,8 @@ SLOT_FIELDS = (("AXIS", 3), ("JROT", 9), ("JPOS", 3), ("MASS", 1), ("MH", 3), ("
                ("TLIM", 1), ("LO", 1), ("HI", 1), ("VLIM", 1), ("DQD", 1))
 # per-sphere-entry constants
 SPHERE_FIELDS = (("GPOS", 3), ("GRAD", 1))
+# per-link-state-entry constants: the link frame's origin in its body's frame
+LINK_FIELDS = (("LPOS", 3),)
 SYM6 = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))   # a symmetric 3x3 as 6 entries
 LANES_PER_BRANCH = (1, 2, 4)
 
@@ -72,9 +79,12 @@ class LanePlan(NamedTuple):
     n_sph_base: int         # sphere entries of the base
     sphere: np.ndarray      # (entries, G) geom of an entry, -1 absent
     link: np.ndarray        # (entries, G) link of an entry's geom, -1 absent
+    n_ls: tuple             # per slot: link-state entries
+    n_ls_base: int          # link-state entries of the base
+    ls_link: np.ndarray     # (link-state entries, G) report link a lane writes, -1 none
     fields: dict            # name -> Field
     ftab: np.ndarray        # (rows, G) float64 lane table
-    itab: np.ndarray        # (rows, G) int lane table: jload, jstore, link, pslot
+    itab: np.ndarray        # (rows, G) int lane table: jload, jstore, link, pslot, ls_link
     irow: dict              # name -> first row in itab
 
     @property
@@ -93,9 +103,17 @@ class LanePlan(NamedTuple):
             return sum(self.n_sph) + k
         return sum(self.n_sph[:slot]) + k
 
+    def ls_entry(self, slot: int, k: int) -> int:
+        """Row of `ls_link` of the k-th link-state entry of a slot; slot -1
+        is the base."""
+        if slot < 0:
+            return sum(self.n_ls) + k
+        return sum(self.n_ls[:slot]) + k
+
     def const(self, name: str, item: int, comp: int, lane: int) -> float:
-        """Constant `name` of slot (or sphere entry) `item`, component `comp`,
-        as lane `lane` reads it: the shared value or its row of the table."""
+        """Constant `name` of slot (or sphere or link-state entry) `item`,
+        component `comp`, as lane `lane` reads it: the shared value or its
+        row of the table."""
         f = self.fields[name]
         i = item * _NCOMP[name] + comp
         if f.eq[i]:
@@ -103,7 +121,7 @@ class LanePlan(NamedTuple):
         return float(self.ftab[f.off[i], lane])
 
 
-_NCOMP = dict(SLOT_FIELDS + SPHERE_FIELDS)
+_NCOMP = dict(SLOT_FIELDS + SPHERE_FIELDS + LINK_FIELDS)
 
 
 def branches(parent):
@@ -192,6 +210,23 @@ def lane_plan(spec, lanes_per_branch: int = 1) -> LanePlan:
     geom_link = np.array([int(l) for l in spec.geom_link] + [-1], np.int64)
     link = geom_link[sphere]     # -1 indexes the appended -1
 
+    # ---- link-state entries: a slot's report links in link order, every
+    # L-th to a lane of the branch; then the base's, dealt round over all G
+    # lanes.  A model with no report link keeps one empty entry of the base
+    # (a C array is never empty).
+    link_body = [int(b) for b in spec.link_body]
+    links_of = {i: [l for l, b in enumerate(link_body) if b == i] for i in range(nb)}
+    per_slot_ls = [[links_of[int(body[s, g])][int(sub_of[g])::L] if body[s, g] >= 0 else []
+                    for g in range(G)] for s in range(D)]
+    n_ls = tuple(max(len(per_slot_ls[s][g]) for g in range(G)) for s in range(D))
+    base_links = [links_of[0][g::G] for g in range(G)]
+    n_ls_base = max(max(len(x) for x in base_links), 0 if any(n_ls) else 1)
+    ls_rows = [[per_slot_ls[s][g][k] if k < len(per_slot_ls[s][g]) else -1 for g in range(G)]
+               for s in range(D) for k in range(n_ls[s])]
+    ls_rows += [[base_links[g][k] if k < len(base_links[g]) else -1 for g in range(G)]
+                for k in range(n_ls_base)]
+    ls_link = np.array(ls_rows, np.int64).reshape(len(ls_rows), G)
+
     # ---- per-lane values of every constant, then the shared value or a table row
     ndof = nb - 1
     fl_dqd = spec.fl_dqd or (0.0,) * ndof
@@ -234,6 +269,16 @@ def lane_plan(spec, lanes_per_branch: int = 1) -> LanePlan:
             if sphere[e, g] >= 0:
                 values["GRAD"][e, 0, g] = spec.geom_radius[int(src)]
 
+    # a lane with no link at an entry takes the first present one's offset,
+    # so that an offset every writer shares stays a compile-time constant
+    values["LPOS"] = np.zeros((ls_link.shape[0], 3, G))
+    for e, row in enumerate(ls_link):
+        present = row[row >= 0]
+        for g in range(G):
+            src = row[g] if row[g] >= 0 else (present[0] if len(present) else -1)
+            if src >= 0:
+                values["LPOS"][e, :, g] = spec.link_pos[int(src)]
+
     rot_axis = []
     for s in range(D):
         ax = values["AXIS"][s].astype(np.float32)
@@ -243,7 +288,7 @@ def lane_plan(spec, lanes_per_branch: int = 1) -> LanePlan:
         rot_axis.append(planar[0] if planar and identity else -1)
 
     fields, table = {}, []
-    for name, _ in SLOT_FIELDS + SPHERE_FIELDS:
+    for name, _ in SLOT_FIELDS + SPHERE_FIELDS + LINK_FIELDS:
         v = values[name].reshape(-1, G)
         v32 = v.astype(np.float32)
         eq = (v32 == v32[:, :1]).all(axis=1)
@@ -255,7 +300,8 @@ def lane_plan(spec, lanes_per_branch: int = 1) -> LanePlan:
     ftab = np.array(table, np.float64).reshape(len(table), G)
 
     irow, itab = {}, []
-    for name, rows_ in (("JLOAD", jload), ("JSTORE", jstore), ("LINK", link), ("PSLOT", pslot)):
+    for name, rows_ in (("JLOAD", jload), ("JSTORE", jstore), ("LINK", link), ("PSLOT", pslot),
+                        ("LSLINK", ls_link)):
         irow[name] = len(itab)
         itab.extend(rows_.tolist())
     itab = np.array(itab, np.int64).reshape(len(itab), G)
@@ -263,8 +309,9 @@ def lane_plan(spec, lanes_per_branch: int = 1) -> LanePlan:
     return LanePlan(G=G, lanes_per_branch=L, n_branches=n_br, depth=D, body=body, pslot=pslot,
                     pslot_level=pslot_level, pslot_uniform=pslot_uniform, first=first,
                     has_child=has_child, rot_axis=tuple(rot_axis), jload=jload, jstore=jstore, n_sph=n_sph,
-                    n_sph_base=n_sph_base, sphere=sphere, link=link, fields=fields, ftab=ftab,
-                    itab=itab, irow=irow)
+                    n_sph_base=n_sph_base, sphere=sphere, link=link, n_ls=n_ls,
+                    n_ls_base=n_ls_base, ls_link=ls_link, fields=fields, ftab=ftab, itab=itab,
+                    irow=irow)
 
 
 def _floats(x) -> str:
@@ -296,6 +343,11 @@ def header_lines(plan: LanePlan) -> list:
         f"#define LGC_P_NSPH {_ints(plan.n_sph)}",
         f"#define LGC_P_NSPH_BASE {plan.n_sph_base}",
         f"#define LGC_P_NENT {plan.n_entries}",
+        f"#define LGC_P_LS0 {_ints([plan.ls_entry(s, 0) for s in range(D)])}",
+        f"#define LGC_P_LS0_BASE {plan.ls_entry(-1, 0)}",
+        f"#define LGC_P_MAX_NLS {max(max(plan.n_ls), 1)}",
+        f"#define LGC_P_NLS {_ints(plan.n_ls)}",
+        f"#define LGC_P_NLS_BASE {plan.n_ls_base}",
     ]
     for name, f in plan.fields.items():
         lines += [f"#define LGC_P_{name}_N {len(f.eq)}",

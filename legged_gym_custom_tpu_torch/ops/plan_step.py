@@ -1,7 +1,8 @@
 """A plain PyTorch control step that walks the lane plan (ops/lane_plan.py).
 
-It computes what `fused_step.plain_control_step` computes, in the order and
-by the arithmetic of the CUDA kernel (ops/csrc/fused_step.cu): every lane of
+It computes the control step of `fused_step.plain_control_step` (the link
+states of the kernel's last outward pass aside), in the order and by the
+arithmetic of the CUDA kernel (ops/csrc/fused_step.cu): every lane of
 the group walks its own slots, reads each model constant through
 `LanePlan.const` (the shared value of the slot, or its row of the lane
 table), turns a joint about a coordinate axis as a planar rotation (the

@@ -14,9 +14,10 @@ and held through the tick (`terrain_tick_sample`).
 On CUDA tensors `control_step` runs the whole control step as one launch of
 the hand-written kernel (ops/fused_step.py, ops/csrc/fused_step.cu): the
 plane variant on the flat plane, the heightfield variant with the per-env
-windows as input on a heightfield.  It raises NotImplementedError for a
-configuration the kernel does not cover and never falls back to the eager
-path on the card.  On CPU tensors it runs `eager_control_step`, the plain
+windows as input on a heightfield.  The kernel also writes the link states
+of the final state, so `link_states` runs only in the eager engine.  It
+raises NotImplementedError for a configuration the kernel does not cover
+and never falls back to the eager path on the card.  On CPU tensors it runs `eager_control_step`, the plain
 PyTorch version of the same function.  An env whose config turns the kernel
 off (`sim.fused_kernel = False`, or `LGC_FUSED_KERNEL=0` when it is built)
 calls `eager_control_step` / `eager_actuated_control_step` by name instead,
@@ -317,16 +318,14 @@ def control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDPara
         if spec is None:
             spec = fused_step.build_spec(ma, params, pd, dof_limits, hf_K=patch_K(hf, params),
                                          hf_hs=0.0 if hf.is_plane else hf.horizontal_scale)
-        out_state, link_forces, torques = fused_step.fused_control_step(
+        out_state, link_forces, torques, lpos, lvel = fused_step.fused_control_step(
             spec,
             tuple(state),
             actions,
             (dr.friction, dr.added_mass, dr.com_offset, dr.kp_mult, dr.kd_mult),
             terrain,
         )
-        st = PhysicsState(*out_state)
-        lpos, lvel = link_states(ma, st)
-        return st, StepInfo(link_forces, lpos, lvel, torques)
+        return PhysicsState(*out_state), StepInfo(link_forces, lpos, lvel, torques)
 
 
 def tickwise_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,
@@ -338,9 +337,10 @@ def tickwise_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, p
     of `spec`'s one-tick 'T' spec (`fused_step.tick_spec`) runs that tick's
     substeps with them as the actions.  On a heightfield the per-env windows
     are cut once, before the first tick, and every tick reads them, as the
-    reference's XLA path does (engine.py:306-315); the link states are taken
-    once, after the last tick.  `fused_control_step` runs the kernel on CUDA
-    tensors and its plain version on CPU tensors.
+    reference's XLA path does (engine.py:306-315); the last tick's launch
+    also writes the link states, the others skip that pass.
+    `fused_control_step` runs the kernel on CUDA tensors and its plain
+    version on CPU tensors.
     Returns (state', StepInfo, actuator_state')."""
     from ..ops import fused_step
 
@@ -351,14 +351,13 @@ def tickwise_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, p
         terrain = fused_step.patch_inputs(lp)
     dr_in = (dr.friction, dr.added_mass, dr.com_offset, dr.kp_mult, dr.kd_mult)
     tlim = soa.bcast(pd.torque_limits, tuple(state.dof_pos.shape[1:]))
-    st, link_forces, tau = tuple(state), None, None
-    for _tick in range(spec.decimation):
+    st, link_forces, tau, lpos, lvel = tuple(state), None, None, None, None
+    for tick in range(spec.decimation):
         tau, actuator_state = torque_fn(actions, st[4], st[5], actuator_state)
         tau = torch.maximum(torch.minimum(tau, tlim), -tlim).contiguous()
-        st, link_forces, tau = fused_step.fused_control_step(one, st, tau, dr_in, terrain)
-    st = PhysicsState(*st)
-    lpos, lvel = link_states(ma, st)
-    return st, StepInfo(link_forces, lpos, lvel, tau), actuator_state
+        st, link_forces, tau, lpos, lvel = fused_step.fused_control_step(
+            one, st, tau, dr_in, terrain, link_states=tick == spec.decimation - 1)
+    return PhysicsState(*st), StepInfo(link_forces, lpos, lvel, tau), actuator_state
 
 
 def actuated_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,

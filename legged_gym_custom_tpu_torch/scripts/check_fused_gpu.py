@@ -158,7 +158,7 @@ def eager_step(p: Plant, state, actions):
 def plain_step(p: Plant, state, actions):
     """One control step of the kernel's plain version on the same inputs."""
     st, lf, tau = fused_step.plain_control_step(p.spec, tuple(state), actions, tuple(p.dr),
-                                                _terrain(p, state))
+                                                _terrain(p, state), link_states=False)[:3]
     return phys.PhysicsState(*(x.contiguous() for x in st)), StepOut(lf, tau)
 
 

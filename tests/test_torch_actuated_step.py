@@ -121,7 +121,8 @@ def test_eager_actuated_step_matches_reference(envs):
 def test_tickwise_path_matches_eager_loop(envs, monkeypatch):
     """The card's path with CPU tensors: `decimation` calls of the one-tick
     'T' spec through `fused_control_step` (its plain version here), the
-    window cut once, against the eager loop."""
+    window cut once, the link states written by the last, against the eager
+    loop."""
     _, env_t = envs
     state, actions, dr, act = _batch(env_t, 2)
     args = _port_args(env_t, state, actions, dr)
@@ -131,11 +132,14 @@ def test_tickwise_path_matches_eager_loop(envs, monkeypatch):
     extract, fused = patch.extract, fused_step.fused_control_step
     monkeypatch.setattr(patch, "extract", lambda *a, **k: cuts.append(1) or extract(*a, **k))
     monkeypatch.setattr(fused_step, "fused_control_step",
-                        lambda spec, *a: calls.append(spec) or fused(spec, *a))
+                        lambda spec, *a, **k: calls.append((spec, k["link_states"]))
+                        or fused(spec, *a, **k))
     st_k, info_k, act_k = tphys.tickwise_control_step(*args, act, env_t._torque_fn,
                                                       env_t.fused_spec)
     one = fused_step.tick_spec(env_t.fused_spec)
-    assert calls == [one] * env_t.fused_spec.decimation == [one] * 4
+    # the last tick's launch alone writes the link states
+    assert [spec for spec, _ in calls] == [one] * env_t.fused_spec.decimation == [one] * 4
+    assert [links for _, links in calls] == [False, False, False, True]
     assert len(cuts) == (0 if env_t.hf.is_plane else 1)
     assert (one.decimation, one.control_type, one.action_scale) == (1, "T", 1.0)
     assert one._replace(decimation=4, control_type="P", action_scale=0.5) == env_t.fused_spec
@@ -175,8 +179,7 @@ def test_tickwise_path_splits_one_launch_at_the_ticks(envs):
     if not env_t.hf.is_plane:
         window = fused_step.patch_inputs(patch.extract(env_t.hf, state[0][0], state[0][1],
                                                        spec4.hf_K))
-    st_1, lf_1, tau_1 = fused_step.plain_control_step(spec4, state, tau, dr, window)
-    lpos, lvel = tphys.link_states(env_t.ma, tphys.PhysicsState(*st_1))
+    st_1, lf_1, tau_1, lpos, lvel = fused_step.plain_control_step(spec4, state, tau, dr, window)
     for name, got, ref in zip(OUTPUTS, (*st_k, *info_k), (*st_1, lf_1, lpos, lvel, tau_1)):
         np.testing.assert_allclose(got.numpy(), ref.numpy(), err_msg=name, **SPLIT_TOL)
     tlim = env_t.pd.torque_limits[:, None]

@@ -28,6 +28,8 @@ from test_torch_physics import GO2_DEFAULT, STATE, TINY_URDF, _both, _plant, _ra
 TOL = dict(base_pos=(1e-4, 1e-4), base_quat=(1e-4, 1e-4), lin_vel=(1e-3, 1e-3),
            ang_vel=(1e-3, 1e-3), dof_pos=(1e-4, 1e-4), dof_vel=(2e-2, 1e-3),
            torques=(1e-2, 1e-3), link_forces=(0.05, 1e-3))
+# the link states: those of the base's position and linear velocity
+TOL.update(link_pos=TOL["base_pos"], link_vel=TOL["lin_vel"])
 B = 32
 K = 24   # SimParams.patch_halfwidth 1.2 m at 0.1 m cells
 
@@ -93,13 +95,19 @@ def test_plain_k3_matches_reference_components(robot):
     st_j, lf_j, tau_j = jfused.control_step_components(
         spec_j, dict(zip(keys, map(split, sj))), split(aj), dj[0], dj[1], split(dj[2]),
         split(dj[3]), split(dj[4]), terrain=terrain_j)
-    out_state, lf_t, tau_t = tfused.plain_control_step(
+    out_state, lf_t, tau_t, lpos_t, lvel_t = tfused.plain_control_step(
         spec_t, tuple(map(torch.as_tensor, state)), torch.as_tensor(actions),
         tuple(map(torch.as_tensor, dr)), terrain_t)
     for name, k, got in zip(STATE, keys, out_state):
         _close(name, got, np.stack(st_j[k]))
     _close("link_forces", lf_t, np.asarray(lf_j))
     _close("torques", tau_t, np.stack(tau_j))
+    # the plain version's last outward pass against JAX `link_states` of
+    # the JAX kernel body's output state
+    lpos_j, lvel_j = jphys.link_states(ma_j, jphys.PhysicsState(*[jnp.stack(st_j[k])
+                                                                  for k in keys]))
+    _close("link_pos", lpos_t, lpos_j)
+    _close("link_vel", lvel_t, lvel_j)
     assert float(np.abs(np.asarray(lf_j)).max()) > 1.0   # the terrain was touched
 
 
@@ -143,7 +151,7 @@ def test_wrapper_runs_plain_k3_on_cpu_and_counts_no_launch():
     ref = tfused.plain_control_step(*args)
     assert (tfused.fused_control_step.launches,
             tfused.fused_control_step.hf_launches) == before
-    for a, b in zip((*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2])):
+    for a, b in zip((*out[0], *out[1:]), (*ref[0], *ref[1:])):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError):   # a window of the wrong size
         tfused.fused_control_step(spec, *args[1:4], (terrain[0][:, :8, :8].contiguous(),

@@ -33,6 +33,10 @@ KEYS = ("pos", "quat", "lin", "ang", "q", "qd")
 T_TOL = dict(torques=(1e-4, 1e-5), base_pos=(1e-5, 1e-5), dof_vel=(1e-3, 1e-4),
              link_forces=(0.01, 1e-3))
 STICTION_TOL = dict(dof_vel=(1e-3, 1e-4), dof_pos=(1e-4, 1e-5), torques=(1e-3, 1e-4))
+# the link states, with those of test_torch_physics.py's base position and
+# linear velocity
+for _tol in (T_TOL, STICTION_TOL):
+    _tol.update(link_pos=(1e-4, 1e-4), link_vel=(1e-3, 1e-3))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -84,7 +88,8 @@ def _close(tol, name, got, ref):
                                err_msg=name)
 
 
-def _jax_components(spec_j, state, actions, dr, terrain=None):
+def _jax_components(ma_j, spec_j, state, actions, dr, terrain=None):
+    """The JAX kernel body's outputs, and JAX `link_states` of its state."""
     split = lambda a: [a[i] for i in range(a.shape[0])]
     sj, aj = [jnp.asarray(x) for x in state], jnp.asarray(actions)
     dj = [jnp.asarray(x) for x in dr]
@@ -92,21 +97,24 @@ def _jax_components(spec_j, state, actions, dr, terrain=None):
         spec_j, dict(zip(KEYS, map(split, sj))), split(aj), dj[0], dj[1], split(dj[2]),
         split(dj[3]), split(dj[4]), terrain=terrain)
     out = dict(zip(STATE, (np.stack(st[k]) for k in KEYS)))
-    return dict(out, link_forces=np.asarray(lf), torques=np.stack(tau))
+    lpos, lvel = jphys.link_states(ma_j, jphys.PhysicsState(*out.values()))
+    return dict(out, link_forces=np.asarray(lf), torques=np.stack(tau), link_pos=lpos,
+                link_vel=lvel)
 
 
 def _torch_plain(spec_t, state, actions, dr, terrain=None):
     T = torch.as_tensor
-    st, lf, tau = tfused.plain_control_step(spec_t, tuple(map(T, state)), T(actions),
-                                            tuple(map(T, dr)), terrain)
-    return dict(zip(STATE, st), link_forces=lf, torques=tau)
+    st, lf, tau, lpos, lvel = tfused.plain_control_step(spec_t, tuple(map(T, state)), T(actions),
+                                                        tuple(map(T, dr)), terrain)
+    return dict(zip(STATE, st), link_forces=lf, torques=tau, link_pos=lpos, link_vel=lvel)
 
 
 def _torch_eager(ma_t, hf_t, sim_t, pd_t, dl_t, state, actions, dr):
     T = torch.as_tensor
     st, info = tphys.control_step(ma_t, hf_t, sim_t, pd_t, tphys.DomainRandParams(*map(T, dr)),
                                   dl_t, tphys.PhysicsState(*map(T, state)), T(actions))
-    return dict(zip(STATE, st), link_forces=info.link_forces, torques=info.torques)
+    return dict(zip(STATE, st), link_forces=info.link_forces, torques=info.torques,
+                link_pos=info.link_pos, link_vel=info.link_vel)
 
 
 @pytest.mark.parametrize("option", ["T", "stiction"])
@@ -126,14 +134,15 @@ def test_plain_k2_matches_reference_on_the_plane(robot, option, monkeypatch):
     assert spec_t.control_type == spec_j.control_type
     assert bool(spec_t.fl_dqd) == bool(spec_j.fl_dqd) == (option == "stiction")
 
-    ref = _jax_components(spec_j, state, actions, dr)
+    ref = _jax_components(ma_j, spec_j, state, actions, dr)
     plain = _torch_plain(spec_t, state, actions, dr)
     eager = _torch_eager(ma_t, tphys.plane(), sim_t, pd_t, dl_t, state, actions, dr)
     ref_state, ref_info, _ = jphys.control_step(
         ma_j, jphys.plane(), sim_j, pd_j, jphys.DomainRandParams(*dr), dl_j,
         jphys.PhysicsState(*state), jnp.asarray(actions))
     engine = dict(zip(STATE, ref_state), link_forces=ref_info.link_forces,
-                  torques=ref_info.torques)
+                  torques=ref_info.torques, link_pos=ref_info.link_pos,
+                  link_vel=ref_info.link_vel)
     for name in tol:
         _close(tol, name, plain[name], ref[name])
         _close(tol, name, plain[name], eager[name])
@@ -168,14 +177,15 @@ def test_plain_k2_matches_reference_on_a_heightfield(robot, monkeypatch):
     terrain_j = dict(patch=jnp.moveaxis(lp_j.data, 0, -1),
                      xoff=lp_j.x0.astype(jnp.float32) * 0.1 - lp_j.border_offset,
                      yoff=lp_j.y0.astype(jnp.float32) * 0.1 - lp_j.border_offset)
-    ref = _jax_components(spec_j, state, actions, dr, terrain_j)
+    ref = _jax_components(ma_j, spec_j, state, actions, dr, terrain_j)
     plain = _torch_plain(spec_t, state, actions, dr, tfused.patch_inputs(lp_t))
     eager = _torch_eager(ma_t, hf_t, sim_t, pd_t, dl_t, state, actions, dr)
     ref_state, ref_info, _ = jax.jit(
         lambda s, a, d: jphys.control_step(ma_j, hf_j, sim_j, pd_j, d, dl_j, s, a)
     )(jphys.PhysicsState(*state), jnp.asarray(actions), jphys.DomainRandParams(*dr))
     engine = dict(zip(STATE, ref_state), link_forces=ref_info.link_forces,
-                  torques=ref_info.torques)
+                  torques=ref_info.torques, link_pos=ref_info.link_pos,
+                  link_vel=ref_info.link_vel)
     for name in HF_TOL:
         _close(HF_TOL, name, plain[name], ref[name])
         _close(HF_TOL, name, plain[name], eager[name])

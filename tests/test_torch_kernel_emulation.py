@@ -9,7 +9,9 @@ shim's `lgc_emulate`).  The generated header is the real one, so what runs is th
 own lane plan, tables, shuffles, masked slots and ragged last block, at 32
 threads a block.  Each case holds its outputs against `plain_control_step`
 on the same seeded inputs with the tolerances of tests/test_fused_step.py
-:126-135 (plane) and :185-193 (heightfield).  This says nothing about speed,
+:126-135 (plane) and :185-193 (heightfield); the link states, which the
+kernel writes after the last substep through the lane plan's link table,
+with those of the base's position and linear velocity.  This says nothing about speed,
 registers or what nvcc accepts: `chip_smoke.py` and test_torch_kernels.py do,
 on the card.  No JAX here: the plain version's parity with JAX is held by
 test_torch_physics.py, test_torch_hf_step.py and test_torch_k2_step.py.
@@ -31,7 +33,8 @@ import torch_tree_model as tree_model
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_host_shim")
 TOL = dict(base_pos=(1e-4, 1e-4), base_quat=(1e-4, 1e-4), lin_vel=(1e-3, 1e-3),
            ang_vel=(1e-3, 1e-3), dof_pos=(1e-4, 1e-4), dof_vel=(1e-2, 1e-3),
-           link_forces=(0.05, 1e-3), torques=(1e-2, 1e-3))
+           link_forces=(0.05, 1e-3), torques=(1e-2, 1e-3), link_pos=(1e-4, 1e-4),
+           link_vel=(1e-3, 1e-3))
 HF_TOL = dict(TOL, dof_vel=(2e-2, 1e-3))
 K, HS = 8, 0.1
 # model, spec options, layout of the build, envs (8, 4, 2 a block at G = 4, 8, 16: the
@@ -99,14 +102,14 @@ def _build(spec, layout, out_dir):
         capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stderr[-4000:]
     handle = ctypes.CDLL(lib)
-    handle.lgc_fused_control_step.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int,
+    handle.lgc_fused_control_step.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int,
                                                                        ctypes.c_void_p]
     handle.lgc_fused_control_step.restype = ctypes.c_int
     return handle
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_kernel_source_on_the_host_matches_plain_version(case, tmp_path):
+def _case(case, tmp_path):
+    """The case's spec, its host build and its seeded inputs."""
     model, options, layout, B = CASES[case]
     base_z = (0.15, 0.35)
     if model == "go2":
@@ -123,26 +126,59 @@ def test_kernel_source_on_the_host_matches_plain_version(case, tmp_path):
     handle = _build(spec, layout, str(tmp_path))
     state, actions, dr = tree_model.model_batch(5, B, angles, base_z=base_z)
     terrain = tree_model.tree_terrain(6, state, K, HS) if spec.hf_K else None
-    ndof = len(spec.parent) - 1
     if spec.fl_dqd:      # a quarter of the joints at rest, for the clamp to hold
         rest = torch.rand(actions.shape, generator=torch.Generator().manual_seed(7)) < 0.25
         state = (*state[:5], torch.where(rest, torch.zeros_like(state[5]), state[5]))
         if spec.control_type == "P":
             hold = (state[4] - torch.tensor(spec.default_dof_pos)[:, None]) / spec.action_scale
             actions = torch.where(rest, hold, actions)
+    return spec, handle, (state, actions, dr, terrain)
+
+
+def _launch(spec, handle, inputs, link_states=True):
+    """One launch of the host build; its 10 outputs, NaN where nothing was
+    stored, the link states' buffers given as null pointers unless
+    `link_states`."""
+    state, actions, dr, terrain = inputs
+    B, ndof, nl = actions.shape[-1], len(spec.parent) - 1, spec.n_links
     empty = lambda c: torch.full((c, B), float("nan"))
-    outs = (empty(3), empty(4), empty(3), empty(3), empty(ndof), empty(ndof),
-            empty(3 * spec.n_links), empty(ndof))
+    outs = (empty(3), empty(4), empty(3), empty(3), empty(ndof), empty(ndof), empty(3 * nl),
+            empty(ndof), empty(3 * nl), empty(3 * nl))
     window = [t.data_ptr() for t in terrain] if terrain else [None] * 3
+    given = outs if link_states else outs[:8]
     err = handle.lgc_fused_control_step(*[t.data_ptr() for t in (*state, actions, *dr)], *window,
-                                        *[t.data_ptr() for t in outs], B, None)
+                                        *[t.data_ptr() for t in given],
+                                        *[None] * (len(outs) - len(given)), B, None)
     assert err == 0
-    ref = fused_step.plain_control_step(spec, state, actions, dr, terrain)
-    got = (*outs[:6], outs[6].view(spec.n_links, 3, B), outs[7])
+    rows = lambda t: t.view(nl, 3, B)
+    return (*outs[:6], rows(outs[6]), outs[7], rows(outs[8]), rows(outs[9]))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_source_on_the_host_matches_plain_version(case, tmp_path):
+    spec, handle, inputs = _case(case, tmp_path)
+    got = _launch(spec, handle, inputs)
+    ref = fused_step.plain_control_step(spec, *inputs)
     tol = HF_TOL if spec.hf_K else TOL
-    for name, a, b in zip(tol, got, (*ref[0], ref[1], ref[2])):
+    for name, a, b in zip(tol, got, (*ref[0], *ref[1:])):
         assert torch.isfinite(a).all(), name      # every env below B was stored
         atol, rtol = tol[name]
         torch.testing.assert_close(a, b, atol=atol, rtol=rtol, msg=lambda m: f"{name}: {m}")
     if spec.fl_dqd:      # the joints held at exactly zero velocity, if any, are the same set
         assert int(((got[5] == 0) != (ref[0][5] == 0)).sum()) <= 0.01 * got[5].numel()
+
+
+@pytest.mark.parametrize("case", ["anymal-plane-T-one-tick-pairs", "cassie-hf-P-tanh-deep"])
+def test_kernel_source_skips_the_link_pass_on_null_outputs(case, tmp_path):
+    """Null link-state pointers (a tick-wise step's ticks before the last)
+    skip the pass: their buffers stay untouched and every other output is
+    the same to the bit as with the pass."""
+    spec, handle, inputs = _case(case, tmp_path)
+    full = _launch(spec, handle, inputs)
+    skipped = _launch(spec, handle, inputs, link_states=False)
+    assert all(bool(torch.isnan(t).all()) for t in skipped[8:])
+    assert all(bool(torch.isfinite(t).all()) for t in full[8:])
+    for a, b in zip(full[:8], skipped[:8]):
+        assert torch.equal(a, b)
+    plain = fused_step.plain_control_step(spec, *inputs, link_states=False)
+    assert plain[3] is None and plain[4] is None

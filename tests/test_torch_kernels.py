@@ -59,6 +59,27 @@ def _assert_close_p99(names, got, ref, tol=TOL):
 
 NAMES = ("base_pos", "base_quat", "lin_vel", "ang_vel", "dof_pos", "dof_vel",
          "link_forces", "torques")
+# the link states the kernel writes, against the eager `link_states` of its own
+# output state: only the rounding differs, so every entry is held, with the
+# tolerances of the base's position and linear velocity
+LINK_TOL = dict(link_pos=TOL["base_pos"], link_vel=TOL["lin_vel"])
+LINKS = fused_step.LINK_STATES
+# a go2 rank's counters after one iteration: K1 once an env step and in
+# `reset_all`, every launch writing the link states
+K1_ITERATION = {"fused_control_step": 1 + 24, "fused_control_step" + LINKS: 1 + 24}
+
+
+def _assert_link_states(ma, state, link_pos, link_vel):
+    lpos, lvel = tphys.link_states(ma, tphys.PhysicsState(*state))
+    for name, got, ref in (("link_pos", link_pos, lpos), ("link_vel", link_vel, lvel)):
+        assert got.shape == ref.shape, name
+        atol, rtol = LINK_TOL[name]
+        torch.testing.assert_close(got, ref, atol=atol, rtol=rtol, msg=lambda m: f"{name}: {m}")
+
+
+def _others_unchanged(before, after, name):
+    """No counter but `name`'s and its link-state counter moved."""
+    return all(after[k] == before[k] for k in before if k not in (name, name + LINKS))
 
 
 @pytest.mark.cuda
@@ -71,6 +92,7 @@ def test_fused_kernel_matches_plain_version(go2_env):
     assert fused_step.fused_control_step.launches == before + 1
     ref = fused_step.plain_control_step(spec, state, actions, dr)
     _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]))
+    _assert_link_states(go2_env.ma, out[0], *out[3:])
 
 
 @pytest.mark.cuda
@@ -81,13 +103,45 @@ def test_engine_on_card_runs_the_kernel_and_matches_eager(go2_env):
     state, actions, dr = _batch(1)
     args = (env.ma, env.hf, env.sim_params, env.pd, tphys.DomainRandParams(*dr),
             env.dof_limits, tphys.PhysicsState(*state), actions)
-    before = fused_step.fused_control_step.launches
+    before = fused_step.launch_counts()
     st, info = tphys.control_step(*args, spec=env.fused_spec)
     torch.cuda.synchronize()
-    assert fused_step.fused_control_step.launches == before + 1
+    after = fused_step.launch_counts()
+    name = "fused_control_step"
+    assert after[name] == before[name] + 1          # the kernel writes the link states too
+    assert after[name + LINKS] == before.get(name + LINKS, 0) + 1
     st_e, info_e = tphys.eager_control_step(*args)
     _assert_close_p99(NAMES, (*st, info.link_forces, info.torques),
                       (*st_e, info_e.link_forces, info_e.torques))
+    _assert_link_states(env.ma, st, info.link_pos, info.link_vel)
+
+
+@pytest.mark.cuda
+def test_control_step_on_the_plane_issues_few_device_events(go2_env):
+    """One `physics.control_step` on CUDA tensors on the plane, under
+    torch.profiler: the kernel writes the link states itself, so the
+    `lgc.physics` span issues at most 20 device events (the eager
+    `link_states` after the kernel issued some 655), the kernel among
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    env = go2_env
+    state, actions, dr = _batch(41)
+    args = (env.ma, env.hf, env.sim_params, env.pd, tphys.DomainRandParams(*dr),
+            env.dof_limits, tphys.PhysicsState(*state), actions)
+    tphys.control_step(*args, spec=env.fused_spec)      # warm: the library, the allocator
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tphys.control_step(*args, spec=env.fused_spec)
+        torch.cuda.synchronize()
+    events = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = [e for e in events if e.name == "lgc.physics" and e.device_type == cpu]
+    # the span's own annotation on the device's timeline is no device event
+    device = [e for e in events if e.device_type == cuda and not e.name.startswith("lgc.")]
+    assert len(spans) == 1
+    assert any(e.name.startswith("fused_control_step_kernel") for e in device)
+    assert 1 <= len(device) <= 20, [e.name for e in device]
 
 
 @pytest.mark.cuda
@@ -100,6 +154,27 @@ def test_wrapper_raises_on_the_card_for_what_the_kernel_does_not_take(go2_env):
         fused_step.fused_control_step(spec, state, actions.t().contiguous().t(), dr)
     with pytest.raises(ValueError):
         fused_step.fused_control_step(spec, state, actions.cpu(), dr)
+
+
+@pytest.mark.cuda
+def test_kernel_skips_the_link_pass_without_link_outputs(go2_env):
+    """`link_states=False` launches with null link-state outputs: the kernel
+    skips its last outward pass, returns None for them, counts the launch
+    but no link-state write, and every other output is the same to the bit
+    as with the pass."""
+    spec = go2_env.fused_spec
+    state, actions, dr = _batch(42)
+    name = "fused_control_step"
+    before = fused_step.launch_counts()
+    full = fused_step.fused_control_step(spec, state, actions, dr)
+    skipped = fused_step.fused_control_step(spec, state, actions, dr, link_states=False)
+    torch.cuda.synchronize()
+    after = fused_step.launch_counts()
+    assert after[name] == before[name] + 2
+    assert after[name + LINKS] == before.get(name + LINKS, 0) + 1
+    assert skipped[3] is None and skipped[4] is None
+    for a, b in zip((*full[0], full[1], full[2]), (*skipped[0], skipped[1], skipped[2])):
+        assert torch.equal(a, b)
 
 
 @pytest.fixture(scope="module")
@@ -142,6 +217,7 @@ def test_heightfield_kernel_matches_plain_version(parkour_env):
     assert fused_step.fused_control_step.hf_launches == before + 1
     ref = fused_step.plain_control_step(spec, state, actions, dr, terrain)
     _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]), HF_TOL)
+    _assert_link_states(parkour_env.ma, out[0], *out[3:])
 
 
 @pytest.mark.cuda
@@ -166,6 +242,7 @@ def test_heightfield_kernel_on_the_finetune_composite_course(parkour_env):
     assert fused_step.fused_control_step.hf_launches == before + 1
     ref = fused_step.plain_control_step(spec, state, actions, dr, terrain)
     _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]), HF_TOL)
+    _assert_link_states(parkour_env.ma, out[0], *out[3:])
 
 
 @pytest.mark.cuda
@@ -185,6 +262,7 @@ def test_engine_on_card_runs_the_heightfield_kernel_and_matches_eager(parkour_en
     st_e, info_e = tphys.eager_control_step(*args)
     _assert_close_p99(NAMES, (*st, info.link_forces, info.torques),
                       (*st_e, info_e.link_forces, info_e.torques), HF_TOL)
+    _assert_link_states(env.ma, st, info.link_pos, info.link_vel)
 
 
 @pytest.mark.cuda
@@ -230,7 +308,9 @@ def test_opt_out_runs_the_eager_engine_on_the_card(go2_env, parkour_env, monkeyp
         fused_step.reset_launch_counts()
         st_k, info_k = tphys.control_step(*args, spec=env.fused_spec)
         torch.cuda.synchronize()
-        assert sum(fused_step.launch_counts().values()) == 1
+        counts = {k: n for k, n in fused_step.launch_counts().items() if n}
+        name = fused_step.variant_name(env.fused_spec)
+        assert counts == {name: 1, name + LINKS: 1}
         fused_step.reset_launch_counts()
         st, info = tphys.eager_control_step(*args)
         modes = [tphys.eager_control_step(*args[:2], env.sim_params._replace(**mode), *args[3:])
@@ -289,8 +369,9 @@ def test_fused_kernel_on_a_ragged_batch(go2_env):
     out = fused_step.fused_control_step(spec, state, actions, dr)
     torch.cuda.synchronize()
     ref = fused_step.plain_control_step(spec, state, actions, dr)
-    assert out[1].shape == (spec.n_links, 3, 100)
+    assert out[1].shape == out[3].shape == out[4].shape == (spec.n_links, 3, 100)
     _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]))
+    _assert_link_states(go2_env.ma, out[0], *out[3:])
 
 
 @pytest.mark.cuda
@@ -303,6 +384,7 @@ def test_heightfield_kernel_on_a_ragged_batch(parkour_env):
     torch.cuda.synchronize()
     ref = fused_step.plain_control_step(spec, state, actions, dr, terrain)
     _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]), HF_TOL)
+    _assert_link_states(parkour_env.ma, out[0], *out[3:])
 
 
 def _rest_quarter(spec, state, actions, seed):
@@ -353,10 +435,12 @@ def test_stiction_kernel_matches_plain_version(stiction_env):
     torch.cuda.synchronize()
     after = fused_step.launch_counts()
     assert after[name] == before.get(name, 0) + 1
-    assert all(after[k] == before[k] for k in before if k != name)
+    assert after[name + LINKS] == before.get(name + LINKS, 0) + 1
+    assert _others_unchanged(before, after, name)
     ref = fused_step.plain_control_step(spec, state, actions, dr)
     _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]))
     _assert_same_joints_held(out[0][5], ref[0][5])
+    _assert_link_states(env.ma, out[0], *out[3:])
 
     args = (env.ma, env.hf, env.sim_params, env.pd, tphys.DomainRandParams(*dr),
             env.dof_limits, tphys.PhysicsState(*state), actions)
@@ -366,6 +450,7 @@ def test_stiction_kernel_matches_plain_version(stiction_env):
     st_e, info_e = tphys.eager_control_step(*args)
     _assert_close_p99(NAMES, (*st, info.link_forces, info.torques),
                       (*st_e, info_e.link_forces, info_e.torques))
+    _assert_link_states(env.ma, st, info.link_pos, info.link_vel)
 
 
 @pytest.mark.cuda
@@ -393,10 +478,11 @@ def test_torque_control_stiction_heightfield_kernel_matches_plain_version():
     torch.cuda.synchronize()
     after = fused_step.launch_counts()
     assert after[name] == before.get(name, 0) + 1
-    assert all(after[k] == before[k] for k in before if k != name)
+    assert _others_unchanged(before, after, name)
     ref = fused_step.plain_control_step(spec, state, actions, dr, terrain)
     _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]), HF_TOL)
     _assert_same_joints_held(out[0][5], ref[0][5])
+    _assert_link_states(env.ma, out[0], *out[3:])
     # the torque is the scaled action, clipped to the effort limits: exact
     tlim = torch.tensor(spec.torque_limits, dtype=torch.float32, device="cuda")[:, None]
     torch.testing.assert_close(out[2], torch.maximum(torch.minimum(actions * 5.0, tlim), -tlim),
@@ -449,10 +535,18 @@ def test_other_robot_build_matches_plain_version(task, tmp_path_factory):
     torch.cuda.synchronize()
     after = fused_step.launch_counts()
     assert after[name] == before.get(name, 0) + 1
-    assert all(after[k] == before[k] for k in before if k != name)
+    assert _others_unchanged(before, after, name)
     ref = fused_step.plain_control_step(spec, *args)
     _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]),
                       HF_TOL if spec.hf_K else TOL)
+    _assert_link_states(env.ma, out[0], *out[3:])
+    # and on a ragged batch, whose last block computes envs beyond B
+    ragged = torch_tree_model.robot_batch(env, 24, 1001, "cuda")
+    if spec.control_type == "T":
+        ragged = (ragged[0], (ragged[1] * 40.0).contiguous(), *ragged[2:])
+    ragged_out = fused_step.fused_control_step(spec, *ragged)
+    torch.cuda.synchronize()
+    _assert_link_states(env.ma, ragged_out[0], *ragged_out[3:])
     assert float(ref[1].abs().max()) > 10.0          # the feet are in contact
     # the build the wrapper launched: its layout, and no spill to local memory
     kernel = fused_step.load_kernel(spec, B)
@@ -484,11 +578,15 @@ def test_actuated_step_on_card_runs_the_one_tick_kernel(task, tmp_path_factory):
     torch.cuda.synchronize()
     after = fused_step.launch_counts()
     assert after[name] == before.get(name, 0) + env.fused_spec.decimation
-    assert all(after[k] == before[k] for k in before if k != name)
+    # the link states once a control step: one launch in four writes them
+    assert env.fused_spec.decimation == 4
+    assert after[name + LINKS] == before.get(name + LINKS, 0) + 1
+    assert _others_unchanged(before, after, name)
     st_e, info_e, act_e = tphys.engine._eager_loop(*args, env._torque_fn, act)
     tol = HF_TOL if env.fused_spec.hf_K else TOL
     _assert_close_p99(NAMES, (*st, info.link_forces, info.torques),
                       (*st_e, info_e.link_forces, info_e.torques), tol)
+    _assert_link_states(env.ma, st, info.link_pos, info.link_vel)
     for a, b in zip(act_k, act_e):
         _assert_close_p99(("dof_vel",), (a,), (b,), tol)
 
@@ -561,8 +659,8 @@ def test_fused_kernel_receipt_passes_its_ks_gate(terrain, card, tmp_path):
         str(tmp_path / "r.json")])
     assert out["rollout_pass"] and max(out["rollout_ks"].values()) < 0.05
     variant = "fused_control_step_hf" if terrain else "fused_control_step"
-    counts = fused_step.launch_counts()
-    assert counts[variant] == 1 + 6 + 10 and sum(counts.values()) == counts[variant]
+    counts = {k: n for k, n in fused_step.launch_counts().items() if n}
+    assert counts == {variant: 1 + 6 + 10, variant + LINKS: 1 + 6 + 10}
     assert out["kernel_ms"] > 0.0 and out["speedup"] > 1.0
     assert out["parity_outlier_env_frac"]["dof_pos"] <= 0.01
 
@@ -581,7 +679,7 @@ def test_two_gloo_ranks_on_one_card_train_through_k1(card, tmp_path):
         2, ["--task", "go2", "--num_envs", "256", "--iterations", "1", "--device", "cuda:0",
             "--ckpt_dir", str(tmp_path)], timeout=600)
     assert (result["backend"], result["device"]) == ("gloo", "cuda:0")
-    assert [r["launches"] for r in result["ranks"]] == [{"fused_control_step": 1 + 24}] * 2
+    assert [r["launches"] for r in result["ranks"]] == [K1_ITERATION] * 2
     assert [r["local_envs"] for r in result["ranks"]] == [128, 128]
     assert result["params_bit_equal"] and result["restored_iteration"] == 1
     assert all(r["losses_finite"] for r in result["ranks"])
@@ -604,7 +702,7 @@ def test_two_nccl_ranks_on_two_cards_train_through_k1(card, tmp_path):
             "--ckpt_dir", str(tmp_path)], timeout=600)
     assert (result["backend"], result["device"]) == ("nccl", "cuda:0")
     assert [r["device"] for r in result["ranks"]] == ["cuda:0", "cuda:1"]
-    assert [r["launches"] for r in result["ranks"]] == [{"fused_control_step": 1 + 24}] * 2
+    assert [r["launches"] for r in result["ranks"]] == [K1_ITERATION] * 2
     assert [r["local_envs"] for r in result["ranks"]] == [128, 128]
     assert result["params_bit_equal"] and result["restored_iteration"] == 1
     assert all(r["losses_finite"] for r in result["ranks"])
@@ -636,7 +734,7 @@ def test_train_script_on_two_gloo_ranks_of_one_card(card):
         line = next(l for l in outputs[0].splitlines() if l.startswith("[train] ranks: "))
         report = json.loads(line[len("[train] ranks: "):])
         assert (report["world_size"], report["backend"], report["iteration"]) == (2, "gloo", 1)
-        assert [r["launches"] for r in report["ranks"]] == [{"fused_control_step": 1 + 24}] * 2
+        assert [r["launches"] for r in report["ranks"]] == [K1_ITERATION] * 2
         assert [r["local_envs"] for r in report["ranks"]] == [128, 128]
         assert report["params_bit_equal"]
         runs = os.listdir(root)
@@ -685,7 +783,7 @@ def test_train_script_started_plainly_runs_a_rank_a_card(card):
         report = json.loads(line[len("[train] ranks: "):])
         assert (report["world_size"], report["backend"], report["iteration"]) == (n, "nccl", 1)
         assert [r["device"] for r in report["ranks"]] == [f"cuda:{i}" for i in range(n)]
-        assert [r["launches"] for r in report["ranks"]] == [{"fused_control_step": 1 + 24}] * n
+        assert [r["launches"] for r in report["ranks"]] == [K1_ITERATION] * n
         assert sum(r["local_envs"] for r in report["ranks"]) == 1024
         assert report["params_bit_equal"] and all(r["losses_finite"] for r in report["ranks"])
         runs = os.listdir(root)

@@ -174,9 +174,24 @@ def test_every_body_sphere_and_dof_has_one_owner(urdfs, model, lanes):
     for g in range(G):
         mine = [int(x) for x in plan.sphere[:sum(plan.n_sph), g] if x >= 0]
         assert mine == sorted(mine)
+    # each report link's state is written by one entry of one lane that holds
+    # its body, with the link frame's origin in the body's frame
+    writers = {}
+    for s in [*range(D), -1]:
+        for k in range(plan.n_ls_base if s < 0 else plan.n_ls[s]):
+            e = plan.ls_entry(s, k)
+            for g in range(G):
+                l = int(plan.ls_link[e, g])
+                if l < 0:
+                    continue
+                assert l not in writers
+                writers[l] = (e, g)
+                assert spec.link_body[l] == (0 if s < 0 else plan.body[s, g])
+                assert [plan.const("LPOS", e, c, g) for c in range(3)] == list(spec.link_pos[l])
+    assert sorted(writers) == list(range(spec.n_links))
     # the index table the kernel reads is these arrays, row for row
     for name, rows in (("JLOAD", plan.jload), ("JSTORE", plan.jstore), ("LINK", plan.link),
-                       ("PSLOT", plan.pslot)):
+                       ("PSLOT", plan.pslot), ("LSLINK", plan.ls_link)):
         np.testing.assert_array_equal(plan.itab[plan.irow[name]:plan.irow[name] + len(rows)], rows)
 
 

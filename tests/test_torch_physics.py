@@ -57,6 +57,8 @@ GO2_DEFAULT = np.array([0.1, 0.8, -1.5, -0.1, 0.8, -1.5, 0.1, 1.0, -1.5, -0.1, 1
 TOL = dict(base_pos=(1e-4, 1e-4), base_quat=(1e-4, 1e-4), lin_vel=(1e-3, 1e-3),
            ang_vel=(1e-3, 1e-3), dof_pos=(1e-4, 1e-4), dof_vel=(1e-2, 1e-3),
            torques=(1e-2, 1e-3), link_forces=(0.05, 1e-3))
+# the link states: those of the base's position and linear velocity
+TOL.update(link_pos=TOL["base_pos"], link_vel=TOL["lin_vel"])
 STATE = ("base_pos", "base_quat", "lin_vel", "ang_vel", "dof_pos", "dof_vel")
 
 
@@ -207,19 +209,24 @@ def test_eager_control_step_matches_reference(robot, monkeypatch):
     _close("lin_vel", info.link_vel, ref_info.link_vel)
 
 
-@pytest.mark.parametrize("model", ["go2", "cassie", "g1"])
+@pytest.mark.parametrize("model", ["go2", "cassie", "g1", "tree"])
 def test_plain_kernel_matches_reference_components(model):
     """The port's plain version of the kernel (`control_step_components`)
     against the JAX kernel body (`fused_step.control_step_components`,
     called with plain arrays as tests/test_fused_step.py:72-107 does) at
-    B = 64 with the go2 plant: on the synthetic Go2 (K1), and on the
+    B = 64 with the go2 plant: on the synthetic Go2 (K1), on the
     synthetic bipeds whose chains of 6 the card runs in the layout for deep
     chains, Cassie on a bumpy heightfield window (K3) and G1 on the plane
     (K1), each standing at its own height (up to 5 cm below its spawn
-    height)."""
+    height), and on the test tree (K1: padded slots, parents that differ by
+    lane, a dense joint rotation).  The plain version's link states (the
+    kernel's last outward pass) against JAX `link_states` of the JAX
+    kernel body's output state."""
     rng = np.random.default_rng(8)
     if model == "go2":
         urdf, default_pos = SYNTHETIC_GO2_URDF, GO2_DEFAULT
+    elif model == "tree":
+        urdf, default_pos = tree_model.TEST_TREE_URDF, tree_model.DEFAULT_ANGLES
     else:
         urdf, default_pos, base_z = tree_model.robot_urdf_and_angles(model)
     ndof, B = len(default_pos), 64
@@ -227,7 +234,7 @@ def test_plain_kernel_matches_reference_components(model):
     state, dr, actions = _rand_batch(4, B, default_pos)
     hf = dict(hf_K=24, hf_hs=0.1) if model == "cassie" else {}
     terrain_t = terrain_j = None
-    if model != "go2":
+    if model not in ("go2", "tree"):
         state[0][2] = rng.uniform(*base_z, B).astype(np.float32)
     if hf:   # a bumpy window under each base, centred on it
         patch = (rng.normal(size=(B, 24, 24)) * 0.03 + 0.05).astype(np.float32)
@@ -238,16 +245,20 @@ def test_plain_kernel_matches_reference_components(model):
                          yoff=jnp.asarray(yoff))
     spec_j = jfused.build_spec(ma_j, _plant(ndof, True), pd_j, dl_j, **hf)
     spec_t = tfused.build_spec(ma_t, _plant(ndof, False), pd_t, dl_t, **hf)
-    # the port's spec adds the terrain sampling mode, which JAX's lacks
-    assert tfused.FusedSpec._fields == jfused.FusedSpec._fields + ("terrain_tick_sample",)
+    # the port's spec adds the terrain sampling mode and the report links,
+    # which JAX's lacks
+    assert tfused.FusedSpec._fields == jfused.FusedSpec._fields + (
+        "terrain_tick_sample", "link_body", "link_pos")
     assert spec_t.terrain_tick_sample is True
+    assert spec_t.link_body == tuple(int(b) for b in ma_j.link_body)
+    np.testing.assert_array_equal(np.array(spec_t.link_pos), np.asarray(ma_j.link_pos, np.float64))
     for field in jfused.FusedSpec._fields:
         a, b = getattr(spec_t, field), getattr(spec_j, field)
         if isinstance(a, str):
             assert a == b, field
         else:
             np.testing.assert_allclose(_flat(a), _flat(b), rtol=1e-6, err_msg=field)
-    if model != "go2":
+    if model in ("cassie", "g1"):
         assert tfused.lanes_per_branch_for(spec_t) == 4     # the card's layout for deep chains
 
     split = lambda a: [a[i] for i in range(a.shape[0])]
@@ -256,13 +267,17 @@ def test_plain_kernel_matches_reference_components(model):
     st_j, lf_j, tau_j = jfused.control_step_components(
         spec_j, dict(zip(keys, map(split, sj))), split(aj), dj[0], dj[1], split(dj[2]),
         split(dj[3]), split(dj[4]), terrain=terrain_j)
-    out_state, lf_t, tau_t = tfused.plain_control_step(
+    out_state, lf_t, tau_t, lpos_t, lvel_t = tfused.plain_control_step(
         spec_t, tuple(map(torch.as_tensor, state)), torch.as_tensor(actions),
         tuple(map(torch.as_tensor, dr)), terrain_t)
     for name, k, got in zip(STATE, keys, out_state):
         _close(name, got, np.stack(st_j[k]))
     _close("link_forces", lf_t, np.asarray(lf_j))
     _close("torques", tau_t, np.stack(tau_j))
+    lpos_j, lvel_j = jphys.link_states(ma_j, jphys.PhysicsState(*[jnp.stack(st_j[k])
+                                                                  for k in keys]))
+    _close("link_pos", lpos_t, lpos_j)
+    _close("link_vel", lvel_t, lvel_j)
     assert float(np.abs(np.asarray(lf_j)).max()) > 1.0      # the feet touch
 
 
@@ -284,9 +299,10 @@ def test_wrapper_runs_plain_version_on_cpu_and_counts_no_launch():
     out = tfused.fused_control_step(spec, state, actions, dr)
     ref = tfused.plain_control_step(spec, state, actions, dr)
     assert tfused.fused_control_step.launches == before
-    for a, b in zip((*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2])):
+    assert len(out) == len(ref) == 5
+    for a, b in zip((*out[0], *out[1:]), (*ref[0], *ref[1:])):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert out[1].shape == (spec.n_links, 3, 8)
+    assert out[1].shape == out[3].shape == out[4].shape == (spec.n_links, 3, 8)
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "contiguous", "device"])
@@ -330,7 +346,7 @@ def test_uncovered_variants_raise():
                         (spec._replace(fl_dqd=(0.1,) * 12), None),
                         (hf_spec._replace(fl_dqd=(0.1,) * 12), terrain)):
         out = tfused.fused_control_step(covered, state, actions, dr, tr)
-        assert all(bool(torch.isfinite(t).all()) for t in (*out[0], out[1], out[2]))
+        assert all(bool(torch.isfinite(t).all()) for t in (*out[0], *out[1:]))
     _, (ma_t, pd_t, dl_t) = _both(SYNTHETIC_GO2_URDF, GO2_DEFAULT)
     per_substep = _plant(12, False)._replace(terrain_tick_sample=False)
     assert tfused.build_spec(ma_t, per_substep, pd_t, dl_t, hf_K=24, hf_hs=0.1) == \
