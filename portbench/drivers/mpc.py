@@ -35,6 +35,8 @@ class Driver:
         env_cfg, train_cfg = task_registry.get_cfgs(self.task)
         for k, v in self.overrides.items():
             harness.set_path((env_cfg, train_cfg), k, v)
+        self.overrides.update(harness.seeded_networks((env_cfg, train_cfg), self.seeds.weights,
+                                                      device))
         self.env, _ = task_registry.make_env(self.task, args=argparse.Namespace(
             seed=self.seeds.terrain), env_cfg=env_cfg, device=device)
         state, _ = self.env.reset_all(torch.Generator(device=device).manual_seed(self.seeds.runner))

@@ -3,7 +3,8 @@ back to back, as `scripts/train.py` runs them (closed loop: each iteration
 starts when the last has ended, synchronised).
 
 Set-up builds the env and the runner through the task registry, makes the
-weights from the seed on the card, resets the envs at random episode lengths
+weights from the seed on the card (and any network the task loads from a
+file, `harness.seeded_networks`), resets the envs at random episode lengths
 and runs the first two iterations (iteration 0 is a DAgger update, 1 a PPO
 update) through `run_iteration`, the window's own call.  They warm up every
 shape the window uses, and the check records what they did: the env steps
@@ -28,22 +29,6 @@ ENV_CHECKS = 3            # env steps of the first two iterations that the check
 TRACE_ITERATIONS = 2      # iterations in the traced window
 
 
-def make_weights(nets, seed: int, device):
-    """Every weight from the seed, on the card, in one draw: N(0, 1/fan_in)
-    for matrices and kernels, N(0, 0.05^2) for biases; the action std stays
-    at the config's initial value."""
-    params = [(n, p) for n, p in nets.named_parameters() if n != "std"]
-    g = torch.Generator(device=device).manual_seed(seed)
-    flat = torch.randn(sum(p.numel() for _, p in params), generator=g, device=device)
-    off = 0
-    with torch.no_grad():
-        for _, p in params:
-            n = p.numel()
-            scale = 1.0 / math.sqrt(p[0].numel()) if p.dim() > 1 else 0.05
-            p.copy_(flat[off:off + n].view_as(p) * scale)
-            off += n
-
-
 class Driver:
     def __init__(self, config: dict, workload: dict, seed: int, device: torch.device):
         from legged_gym_custom_tpu_torch.envs import task_registry
@@ -61,12 +46,14 @@ class Driver:
         if wrong:
             raise SystemExit(f"portbench: the program's config differs from {self.task}.json: "
                              f"{wrong}")
+        self.overrides.update(harness.seeded_networks((env_cfg, train_cfg), self.seeds.weights,
+                                                      device))
         train_cfg.seed = self.seeds.runner
         self.env, _ = task_registry.make_env(self.task, args=argparse.Namespace(
             seed=self.seeds.terrain), env_cfg=env_cfg, device=device)
         self.runner, _ = task_registry.make_alg_runner(self.env, train_cfg=train_cfg,
                                                        log_root=None)
-        make_weights(self.runner.nets, self.seeds.weights, device)
+        harness.make_weights(self.runner.nets, self.seeds.weights, device)
         self.runner.env_state, self.runner.obs = self.env.reset_all(
             self.runner.generator, init_at_random_ep_len=True)
         self.steps_per_iteration = self.runner.num_steps_per_env * self.env.num_envs_global
@@ -136,12 +123,20 @@ class Driver:
                                  "env_steps": TRACE_ITERATIONS * self.runner.num_steps_per_env})
 
     def facts(self) -> dict:
-        """What the metric readers need to know of the cell: the kernel's
-        spec and batch, the configs' sizes."""
+        """What the metric readers need to know of the cell: the spec each
+        kernel launch runs and the launches in a control step (an env with an
+        actuator network steps tick by tick, one launch of the one-tick spec
+        a decimation tick; any other env launches its spec once), the batch,
+        the configs' sizes."""
         from portbench.reference import train_ref
+        from portbench.reference.frozen.ops.fused_step import tick_spec
 
-        return {"fused_spec": self.env.fused_spec, "batch": self.env.num_envs,
-                "configs": train_ref.configs(self.task, self.overrides),
+        cfgs = train_ref.configs(self.task, self.overrides)
+        spec = self.env.fused_spec
+        tickwise = spec is not None and getattr(cfgs[0].control, "use_actuator_network", False)
+        return {"launch_spec": tick_spec(spec) if tickwise else spec,
+                "launches": spec.decimation if tickwise else 1,
+                "batch": self.env.num_envs, "configs": cfgs,
                 "epochs": self.runner.ppo_cfg.num_learning_epochs}
 
     def release(self):

@@ -6,11 +6,12 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import math
 import os
 import resource
 import sys
 import time
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 
@@ -85,6 +86,62 @@ def seeds(seed: int) -> Seeds:
     choice of what the check samples."""
     s = np.random.SeedSequence(int(seed)).generate_state(4)
     return Seeds(*[int(x) & 0x7FFFFFFF for x in s])
+
+
+def make_weights(module, seed: int, device):
+    """Every weight of `module` from the seed, on `device`, in one draw:
+    N(0, 1/fan_in) for matrices and kernels, N(0, 0.05^2) for biases; a
+    policy's action std stays at the config's initial value, and a weight
+    with no elements (a layer on an empty input) draws nothing."""
+    import torch
+
+    params = [(n, p) for n, p in module.named_parameters() if n != "std" and p.numel()]
+    g = torch.Generator(device=device).manual_seed(seed)
+    flat = torch.randn(sum(p.numel() for _, p in params), generator=g, device=device)
+    off = 0
+    with torch.no_grad():
+        for _, p in params:
+            n = p.numel()
+            scale = 1.0 / math.sqrt(p[0].numel()) if p.dim() > 1 else 0.05
+            p.copy_(flat[off:off + n].view_as(p) * scale)
+            off += n
+
+
+def seeded_networks(cfgs, seed: int, device) -> Dict[str, str]:
+    """The networks a task loads from a file, made from the weights seed, so
+    that the program and the reference load the same file through their own
+    loaders.  Where the env config has `control.use_actuator_network`, the
+    SEA actuator network: `nn.LSTM(2, 8, 2)` over [position error, velocity]
+    and `nn.Linear(8, 1)` to the torque (the shapes `models/actuator_net.py`
+    reads), drawn as `make_weights` draws, with `in_scale` and `out_scale` 1,
+    written as TorchScript to `build/portbench/sea_lstm_<seed>.pt` inside the
+    checkout.  Sets the file on the configs `cfgs` and returns the override
+    that names it, to add to the run's overrides."""
+    import torch
+
+    if not getattr(cfgs[0].control, "use_actuator_network", False):
+        return {}
+
+    class SeaNetwork(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lstm = torch.nn.LSTM(2, 8, 2, batch_first=True)
+            self.linear = torch.nn.Linear(8, 1)
+            self.register_buffer("in_scale", torch.ones(2))
+            self.register_buffer("out_scale", torch.ones(()))
+
+        def forward(self, x, hc: Tuple[torch.Tensor, torch.Tensor]):
+            y, (h, c) = self.lstm(x * self.in_scale, hc)
+            return self.linear(y) * self.out_scale, (h, c)
+
+    net = SeaNetwork().to(device)
+    make_weights(net, seed, device)
+    path = os.path.join(ROOT, "build", "portbench", f"sea_lstm_{seed}.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.jit.script(net.cpu().eval()).save(path + ".tmp")
+    os.replace(path + ".tmp", path)
+    set_path(cfgs, "control.actuator_net_file", path)
+    return {"control.actuator_net_file": path}
 
 
 def require_cards(chips: int):

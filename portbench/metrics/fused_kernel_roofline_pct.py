@@ -3,7 +3,8 @@
 over its measured device time a launch.  The least time is the largest of
 its flops at 67 TFLOP/s, its transcendentals at the SFU rate and its bytes
 at 3.35 TB/s, all for the cell's batch; the counts are the frozen
-`count_kernel_ops` of the cell's own spec, the time the mean of the
+`count_kernel_ops` of the spec each launch runs (the cell's spec, or its
+one-tick spec where the env steps tick by tick), the time the mean of the
 `fused_control_step_kernel` events of the traced window."""
 from portbench.reference import kernel_ops, peaks
 
@@ -11,7 +12,7 @@ KERNEL = "fused_control_step_kernel"
 
 
 def read(run):
-    spec = run.facts.get("fused_spec")
+    spec = run.facts.get("launch_spec")
     lo, hi = run.trace.window
     ks = [e - b for n, b, e in run.trace.device if n.startswith(KERNEL) and lo <= b and e <= hi]
     if spec is None or not ks:

@@ -37,7 +37,10 @@ def moving_leaves(first_grad: Dict[str, torch.Tensor], floor: float = 1e-3) -> l
 
 def per_env_gap(prog: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """(B,) each env's largest absolute gap in a batch-leading leaf, over the
-    leaf's RMS in the reference (so that leaves of every unit compare)."""
+    leaf's RMS in the reference (so that leaves of every unit compare); 0
+    where the leaf holds nothing for an env (ANYmal's empty scan stream)."""
     p, r = prog.double(), ref.double()
+    if p[0].numel() == 0:
+        return torch.zeros(p.shape[0], dtype=p.dtype, device=p.device)
     scale = torch.sqrt(torch.mean(r * r)).clamp(min=1e-6)
     return ((p - r).abs().reshape(p.shape[0], -1).amax(dim=1)) / scale

@@ -1,6 +1,7 @@
 """FLOPs of a training iteration, counted from shapes: the networks' matrix
 products (2 x M x N x K each, from an aten-level trace of the frozen networks
-on one sample), the physics from the frozen kernel count, and the update's
+on one sample, and of the frozen SEA actuator network where the task has
+one), the physics from the frozen kernel count, and the update's
 forward and backward passes (backward twice the forward of each module that
 gets gradients).  Work the program does twice (the privileged encoder, run
 again for the ROA loss) is counted once; elementwise work outside the kernel
@@ -11,7 +12,9 @@ from typing import Dict
 
 import torch
 
+from .frozen.models.actuator_net import load_actuator_net
 from .frozen.models.networks import ActorCriticNetworks
+from .frozen.physics.actuator import lstm_actuator
 
 _MATMUL = {"mm", "addmm", "bmm", "convolution"}
 
@@ -42,8 +45,24 @@ def count(fn) -> int:
     return total[0]
 
 
+def actuator_flops(control) -> int:
+    """Matrix-product FLOPs of the actuator network a dof and decimation
+    tick: the frozen `lstm_actuator` on the network of
+    `control.actuator_net_file`, run on 2 dofs x 2 envs (no axis of size 1
+    for the products to fold) and divided by 4; 0 where the task has no
+    network."""
+    if not getattr(control, "use_actuator_network", False):
+        return 0
+    w = load_actuator_net(control.actuator_net_file)
+    dofs, envs = 2, 2
+    state = torch.zeros(len(w.w_ih), dofs, w.w_hh[0].shape[1], envs)
+    err = torch.zeros(dofs, envs)
+    return count(lambda: lstm_actuator(w, err, err, state, state)) // (dofs * envs)
+
+
 def module_flops(env_cfg, train_cfg) -> Dict[str, int]:
-    """Forward FLOPs per sample of each module, on the frozen networks."""
+    """Forward FLOPs per sample of each module, on the frozen networks, and
+    the actuator network's a dof and tick (`actuator_flops`)."""
     e = env_cfg.env
     nets = ActorCriticNetworks(train_cfg.policy, num_proprio=e.num_proprio,
                                num_privileged_obs=e.num_privileged_obs,
@@ -63,6 +82,7 @@ def module_flops(env_cfg, train_cfg) -> Dict[str, int]:
         "scan_encoder": count(lambda: nets.scan_encoder(torch.zeros(1, e.num_scan_obs))),
         "actor": count(lambda: nets.actor(torch.cat([obs, lat, scan_lat, est], dim=-1))),
         "critic": count(lambda: nets.critic(torch.zeros(1, e.num_critic_obs))),
+        "actuator": actuator_flops(env_cfg.control),
     }
 
 

@@ -22,15 +22,12 @@ import torch
 
 from . import compare
 from ..harness import set_path
+from .frozen.envs import TASKS
 from .frozen.envs.base_env import EnvState, Obs
-from .frozen.envs.go2_config import Go2Cfg, Go2CfgPPO
-from .frozen.envs.go2_env import Go2Env
-from .frozen.envs.go2_parkour_config import Go2ParkourCfg, Go2ParkourCfgPPO
 from .frozen.models.networks import ActorCriticNetworks
 from .frozen.physics.engine import DomainRandParams, PhysicsState
 from .frozen.rl import ppo
 
-TASKS = {"go2": (Go2Env, Go2Cfg, Go2CfgPPO), "go2_parkour": (Go2Env, Go2ParkourCfg, Go2ParkourCfgPPO)}
 CHECK_STEPS = 3          # optimizer steps the check follows one by one
 ADAM_BETA1 = 0.9         # torch.optim.Adam's default, as the port uses it
 
@@ -80,10 +77,20 @@ def to_state(snap) -> EnvState:
     return EnvState(**fields)
 
 
+def _actuator(act_state) -> Dict[str, torch.Tensor]:
+    """A stateful actuator's state, the SEA LSTM's (hidden, cell) pair,
+    batch-leading, as outputs of the step; none for a stateless env's (B,)
+    placeholder."""
+    if not isinstance(act_state, (tuple, list)):
+        return {}
+    return {f"actuator.{i}": v for i, v in enumerate(act_state)}
+
+
 def step_outputs(state: EnvState, obs: Obs, rew, done) -> Dict[str, torch.Tensor]:
     out = {"physics." + k: v for k, v in state.physics._asdict().items()}
     out.update({"obs." + k: v for k, v in obs._asdict().items()})
     out.update(rew=rew, obs_history=state.obs_history, commands=state.commands)
+    out.update(_actuator(state.actuator_state))
     return out
 
 
@@ -92,12 +99,14 @@ def program_outputs(out) -> Dict[str, torch.Tensor]:
     d = {"physics." + k: v for k, v in state["physics"].items()}
     d.update({"obs." + k: v for k, v in obs.items()})
     d.update(rew=rew, obs_history=state["obs_history"], commands=state["commands"])
+    d.update(_actuator(state["actuator_state"]))
     return d
 
 
 def env_step_gaps(env, rec, tf32: bool = False, fault: str = None) -> dict:
     """Each env's largest gap over the step's outputs (physics state, the
-    five observation streams, the history, commands, rewards), which envs
+    five observation streams, the history, commands, rewards, and a stateful
+    actuator's state where the env has one), which envs
     the reference reset, and how many envs' reset decision differs.
     `fault`, held against the reference in the program's place:
     "unchanged", a step that returns its input state and resets nothing;

@@ -74,7 +74,7 @@ def test_readers_find_nothing_and_return_nothing():
                  "env_step_launches"):
         assert harness.load_module("metrics", name).read(Run(None, empty, {})) is None
     assert harness.load_module("metrics", "fused_kernel_roofline_pct").read(
-        Run(None, empty, {"fused_spec": None})) is None
+        Run(None, empty, {"launch_spec": None})) is None
 
 
 def test_p95_has_samples_beyond_it_and_rate_counts_the_whole_window():
