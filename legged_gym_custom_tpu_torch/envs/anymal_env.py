@@ -18,23 +18,27 @@ from legged_gym_custom_tpu_torch.physics.actuator import lstm_actuator
 from .base_env import LeggedEnv
 
 
+def sea_torque_fn(weights, action_scale: float, default):
+    """The SEA network `weights` (`LSTMWeights`) as the engine's torque
+    function: the position error of the scaled actions about `default`
+    (ndof, 1), and the velocity, through the LSTM."""
+    def torque_fn(actions, dof_pos, dof_vel, act_state):
+        # (C, B) layout: dof tensors (ndof, B), the state (2, ndof, 8, B)
+        hidden, cell = act_state
+        pos_err = actions * action_scale + default - dof_pos
+        tau, hidden, cell = lstm_actuator(weights, pos_err, dof_vel, hidden, cell)
+        return tau, (hidden, cell)
+
+    return torque_fn
+
+
 class AnymalEnv(LeggedEnv):
     def _build_torque_fn(self):
         cfg = self.cfg.control
         if not getattr(cfg, "use_actuator_network", False):
             return None
-        weights = load_actuator_net(cfg.actuator_net_file, device=self.device)
-        action_scale = cfg.action_scale
-        default = self.default_dof_pos[:, None]
-
-        def torque_fn(actions, dof_pos, dof_vel, act_state):
-            # (C, B) layout: dof tensors (ndof, B), the state (2, ndof, 8, B)
-            hidden, cell = act_state
-            pos_err = actions * action_scale + default - dof_pos
-            tau, hidden, cell = lstm_actuator(weights, pos_err, dof_vel, hidden, cell)
-            return tau, (hidden, cell)
-
-        return torque_fn
+        return sea_torque_fn(load_actuator_net(cfg.actuator_net_file, device=self.device),
+                             cfg.action_scale, self.default_dof_pos[:, None])
 
     def _init_actuator_state(self):
         if self._torque_fn is None:

@@ -223,7 +223,8 @@ def _eager_loop(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParam
                 dr: DomainRandParams, dof_limits: tuple, state: PhysicsState, actions,
                 torque_fn=None, actuator_state=None):
     """decimation x substeps in plain PyTorch ops; the torques of each tick
-    are the PD law's, or `torque_fn`'s clipped to the effort limits."""
+    are the PD law's, or `torque_fn`'s (an `lgc.actuator` span) clipped to
+    the effort limits."""
     dt_sub = params.dt / params.substeps
     inertias = body_inertias(ma, dr.added_mass, dr.com_offset)
     terrain = hf
@@ -238,8 +239,9 @@ def _eager_loop(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParam
             tau = compute_torques(pd, actions, state.dof_pos, state.dof_vel, dr.kp_mult,
                                   dr.kd_mult)
         else:
-            tau, actuator_state = torque_fn(actions, state.dof_pos, state.dof_vel,
-                                            actuator_state)
+            with span("lgc.actuator"):
+                tau, actuator_state = torque_fn(actions, state.dof_pos, state.dof_vel,
+                                                actuator_state)
             tau = torch.maximum(torch.minimum(tau, tlim), -tlim)
         surface = None
         if tick_sample:
@@ -335,7 +337,8 @@ def tickwise_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, p
     launch per decimation tick.  At each tick `torque_fn` gives the torques
     from the current dof state, clipped to the effort limits, and one launch
     of `spec`'s one-tick 'T' spec (`fused_step.tick_spec`) runs that tick's
-    substeps with them as the actions.  On a heightfield the per-env windows
+    substeps with them as the actions; each `torque_fn` call is an
+    `lgc.actuator` span.  On a heightfield the per-env windows
     are cut once, before the first tick, and every tick reads them, as the
     reference's XLA path does (engine.py:306-315); the last tick's launch
     also writes the link states, the others skip that pass.
@@ -353,7 +356,8 @@ def tickwise_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, p
     tlim = soa.bcast(pd.torque_limits, tuple(state.dof_pos.shape[1:]))
     st, link_forces, tau, lpos, lvel = tuple(state), None, None, None, None
     for tick in range(spec.decimation):
-        tau, actuator_state = torque_fn(actions, st[4], st[5], actuator_state)
+        with span("lgc.actuator"):
+            tau, actuator_state = torque_fn(actions, st[4], st[5], actuator_state)
         tau = torch.maximum(torch.minimum(tau, tlim), -tlim).contiguous()
         st, link_forces, tau, lpos, lvel = fused_step.fused_control_step(
             one, st, tau, dr_in, terrain, link_states=tick == spec.decimation - 1)

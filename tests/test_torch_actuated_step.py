@@ -19,7 +19,16 @@ on the CPU.
   dof_vel on these batches).  With a torque function that ignores the state,
   the tick-wise path must equal one launch of the 4-tick 'T' spec to 1e-6 on
   both terrains: the same plain arithmetic, split at the ticks.
+* The tick-wise path with the SEA network the benchmark draws from a seed
+  (input and output scale 1, `scripts/tickwise_witness.py`) against the
+  benchmark's frozen reference (`portbench/reference/frozen/`, its own
+  eager engine and ANYmal env on the same terrain and network file), over
+  several control steps with the program's recurrent state carried forward;
+  the reference follows each step from the program's state, as the
+  benchmark's check does.
 """
+import random
+
 import numpy as np
 import pytest
 import torch
@@ -188,3 +197,73 @@ def test_tickwise_path_splits_one_launch_at_the_ticks(envs):
         params = env_t.sim_params._replace(patch_halfwidth=0.0)
         with pytest.raises(NotImplementedError, match="patch"):
             tphys.engine._check_kernel_terrain(env_t.hf, params)
+
+
+RUN_STEPS = 3
+# each env's largest gap over the leaf's RMS in the reference (the
+# benchmark's per-env gap): the plain kernel's window taps and the eager
+# engine's surface sampling round differently on the trimesh's slopes, and
+# the LSTM carries a tick's rounding into its state (at most 4.2e-4 here;
+# the LSTM state not carried from tick to tick reads 2.0)
+FOLLOW_GAP = 5e-3
+
+
+@pytest.fixture(scope="module")
+def seeded_rough(tmp_path_factory):
+    """anymal_c_rough at B envs on 3 x 2 trimesh tiles with the seeded SEA
+    network: the port's env and the frozen reference's, on one terrain seed
+    and one network file."""
+    from legged_gym_custom_tpu_torch.scripts import tickwise_witness
+    from portbench.reference.frozen.envs import TASKS
+
+    path = tickwise_witness.write_sea_network(
+        tickwise_witness.seeded_sea_weights(2**31 + 3, "cpu"),
+        str(tmp_path_factory.mktemp("seeded") / "sea.pt"))
+
+    def make(env_cls, cfg_cls):
+        cfg = _cfg(cfg_cls, path)
+        random.seed(4)
+        np.random.seed(4)
+        return env_cls(cfg, cfg.asset.file, name="anymal_c_rough", device="cpu", terrain_seed=4)
+
+    ref_env, ref_cfg, _ = TASKS["anymal_c_rough"]
+    return make(AnymalEnv, AnymalCRoughCfg), make(ref_env, ref_cfg)
+
+
+def _rel_gap(got, ref):
+    """The largest over the envs (batch last) of each env's largest gap over
+    the leaf's RMS."""
+    got, ref = got.double(), ref.double()
+    scale = torch.sqrt(torch.mean(ref * ref)).clamp(min=1e-6)
+    return float((got - ref).abs().reshape(-1, ref.shape[-1]).amax() / scale)
+
+
+def test_tickwise_path_follows_the_frozen_reference(seeded_rough):
+    """RUN_STEPS control steps of the tick-wise path (its plain version on
+    these CPU tensors), the LSTM state starting at zero as after a reset and
+    carried forward by the program; at each step the frozen reference's
+    eager control step from the program's state and LSTM state gives the
+    same state, link outputs and LSTM state."""
+    from portbench.reference.frozen import physics as fphys
+
+    env, ref = seeded_rough
+    assert torch.equal(env.hf.data, ref.hf.data)
+    assert not env.hf.is_plane and env.fused_spec.hf_K == 24
+    state, actions, dr, _ = _batch(env, 5)
+    act = tuple(torch.zeros(2, 12, 8, B) for _ in range(2))
+    rng = np.random.default_rng(5)
+    worst = {}
+    for k in range(RUN_STEPS):
+        st, info, act_next = tphys.tickwise_control_step(
+            *_port_args(env, state, actions, dr), act, env._torque_fn, env.fused_spec)
+        r_st, r_info, r_act = fphys.eager_actuated_control_step(
+            ref.ma, ref.hf, ref.sim_params, ref.pd, fphys.DomainRandParams(*dr), ref.dof_limits,
+            fphys.PhysicsState(*state), actions, act, ref._torque_fn)
+        names = OUTPUTS + ("hidden", "cell")
+        for name, got, want in zip(names, (*st, *info, *act_next), (*r_st, *r_info, *r_act)):
+            worst[name] = max(worst.get(name, 0.0), _rel_gap(got, want))
+        state, act = tuple(st), act_next
+        actions = torch.as_tensor(rng.standard_normal((12, B)), dtype=torch.float32)
+    assert all(v <= FOLLOW_GAP for v in worst.values()), worst
+    assert float(act[0].abs().max()) > 0.05        # the carried state is not zero
+    assert float(info.link_forces.abs().max()) > 10.0

@@ -1,7 +1,8 @@
 """The program's spans (`utils/profiling.py::span`) on the CPU: where each
 `lgc.*` span sits under a torch.profiler, that the env step's five phases
 tile it, that a control step records one physics span whichever entry point
-runs it, and that with no profiler running nothing enters a
+runs it, that an actuator network's call is one `lgc.actuator` span a tick
+inside it, and that with no profiler running nothing enters a
 `record_function`."""
 import pytest
 import torch
@@ -10,6 +11,7 @@ from torch.profiler import ProfilerActivity, profile
 from legged_gym_custom_tpu_torch import physics as phys
 from legged_gym_custom_tpu_torch.envs import task_registry
 from legged_gym_custom_tpu_torch.mpc import MPPI, MPPIConfig
+from legged_gym_custom_tpu_torch.physics import engine
 from legged_gym_custom_tpu_torch.rl import ppo as ppo_lib
 from legged_gym_custom_tpu_torch.utils import profiling
 
@@ -145,6 +147,48 @@ def test_each_engine_entry_point_records_one_physics_span(go2, entry):
     if "actuated" in entry:
         call = lambda: fn(*args, torch.zeros(args[-1].shape[-1]), _pd_torques)
     assert len(_spans(_events(call), "lgc.physics")) == 1
+
+
+@pytest.fixture(scope="module")
+def anymal(tmp_path_factory):
+    """anymal_c_flat at 4 envs on the CPU with the SEA stand-in network, one
+    substep a tick (its four decimation ticks kept)."""
+    import torch_actuator_net
+
+    env_cfg, _ = task_registry.get_cfgs("anymal_c_flat")
+    env_cfg.env.num_envs = 4
+    env_cfg.sim.substeps = 1
+    env_cfg.control.actuator_net_file = torch_actuator_net.write_sea_net(
+        str(tmp_path_factory.mktemp("sea") / "sea.pt"))
+    env, _ = task_registry.make_env("anymal_c_flat", env_cfg=env_cfg, device="cpu")
+    return env
+
+
+@pytest.mark.parametrize("path", ["eager", "tickwise"])
+def test_actuator_span_fires_once_a_tick_inside_physics(anymal, path, monkeypatch):
+    """An ANYmal env step records one `lgc.actuator` span a decimation tick,
+    each inside the step's one `lgc.physics` span and around the torque
+    function's ops: on the eager loop that CPU tensors run, and on the
+    tick-wise path that the card runs (here its plain version, entered from
+    `actuated_control_step`'s span as on the card)."""
+    env = anymal
+    if path == "tickwise":
+        # (..., actions, torque_fn, actuator_state) -> (..., actions, actuator_state, torque_fn)
+        monkeypatch.setattr(engine, "_eager_loop", lambda *a: engine.tickwise_control_step(
+            *a[:8], a[9], a[8], env.fused_spec))
+    ticks = []
+    monkeypatch.setattr(env, "_torque_fn", lambda *a, _fn=env._torque_fn: ticks.append(
+        torch.ones(1).add_(1)) or _fn(*a))
+    state = env.reset_all(torch.Generator().manual_seed(2))[0]
+    ticks.clear()
+    events = _events(lambda: env.step(state, torch.zeros(env.num_envs, env.num_actions)))
+    (physics,) = _spans(events, "lgc.physics")
+    actuator = _spans(events, "lgc.actuator")
+    assert len(actuator) == len(ticks) == env.cfg.control.decimation == 4
+    assert all(physics[0] <= b and e <= physics[1] for b, e in actuator)
+    assert all(a[1] <= b[0] for a, b in zip(actuator, actuator[1:]))
+    adds = [e for e in events if e[0] == "aten::add_" and _inside(e, physics)]
+    assert len(adds) == 4 and all(any(_inside(op, w) for w in actuator) for op in adds)
 
 
 @pytest.mark.parametrize("kind", ["ppo", "dagger"])
