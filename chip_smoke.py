@@ -44,10 +44,10 @@ Phases (any failure exits non-zero; the last line is printed only on success):
                a platform face or a gap edge, whose spec must name the same
                library as go2_parkour's (no other nvcc build); then the
                opt-out (an env with `sim.fused_kernel` off, or built under
-               LGC_FUSED_KERNEL=0, calls the eager engine by name): one
-               `physics.eager_control_step` of K1's go2 batch and of K3's
-               gap-course batch on the card launches no kernel and agrees
-               with the kernel's output at the same p99 gates; the two
+               LGC_FUSED_KERNEL=0, has no spec and steps the eager engine):
+               one `physics.control_step` with no spec of K1's go2 batch and
+               of K3's gap-course batch on the card launches no kernel and
+               agrees with the kernel's output at the same p99 gates; the two
                heightfield modes no kernel covers (patch_halfwidth 0,
                terrain_tick_sample False) run there, finite, without a
                launch, while `physics.control_step` and the wrapper refuse
@@ -574,8 +574,8 @@ def kernel_bound(spec, args, outs, peaks=None) -> dict:
 
 def time_eager(label, env, args, one_tick: bool = False, reps: int = EAGER_REPS) -> float:
     """CUDA-event median of `reps` control steps of the eager engine on the
-    card (`physics.eager_control_step`, what an env with the kernel off
-    steps) on a build's inputs (state, actions, dr; a heightfield's windows
+    card (`physics.control_step` with no spec, what an env with the kernel
+    off steps) on a build's inputs (state, actions, dr; a heightfield's windows
     are cut from the env's table), the counterpart of JAX's `xla_ms`.
     `one_tick`: the one-tick 'T' step of a stateful actuator's build
     (decimation 1, direct torques at scale 1)."""
@@ -588,7 +588,7 @@ def time_eager(label, env, args, one_tick: bool = False, reps: int = EAGER_REPS)
         pd = pd._replace(control_type="T", action_scale=1.0)
     step = (env.ma, env.hf, params, pd, phys.DomainRandParams(*dr), env.dof_limits,
             phys.PhysicsState(*state), actions)
-    ms = cuda_time_ms(lambda: phys.eager_control_step(*step), reps=reps, warmup=1)
+    ms = cuda_time_ms(lambda: phys.control_step(*step, spec=None), reps=reps, warmup=1)
     log(f"[eager] {label} B={actions.shape[-1]}: the eager engine's step "
         f"{ms:.2f} ms (median of {reps} after one warm-up)")
     return ms
@@ -596,8 +596,8 @@ def time_eager(label, env, args, one_tick: bool = False, reps: int = EAGER_REPS)
 
 def opt_out_check(envs, args, outs, card) -> bool:
     """Phase 3's opt-out gate.  An env with the kernel off (`sim.fused_kernel`,
-    or LGC_FUSED_KERNEL=0 when built) steps `physics.eager_control_step` by
-    name: one step of it on K1's go2 batch and on K3's gap-course batch
+    or LGC_FUSED_KERNEL=0 when built) has no spec and steps
+    `physics.control_step` in the eager engine: one step of it on K1's go2 batch and on K3's gap-course batch
     launches no kernel and agrees with the kernel's output on the same inputs
     at phase 3's p99 tolerances; the two heightfield modes no kernel covers
     (no window, per-substep sampling) run in it, finite and without a launch,
@@ -613,11 +613,11 @@ def opt_out_check(envs, args, outs, card) -> bool:
         step = (env.ma, env.hf, env.sim_params, env.pd, phys.DomainRandParams(*dr),
                 env.dof_limits, phys.PhysicsState(*state), actions)
         fused_step.reset_launch_counts()
-        st, info = phys.eager_control_step(*step)
+        st, info = phys.control_step(*step, spec=None)
         modes = {} if env.hf.is_plane else {
             mode: env.sim_params._replace(**{mode: value})
             for mode, value in (("patch_halfwidth", 0.0), ("terrain_tick_sample", False))}
-        outs_m = {mode: phys.eager_control_step(*step[:2], params, *step[3:])[0]
+        outs_m = {mode: phys.control_step(*step[:2], params, *step[3:], spec=None)[0]
                   for mode, params in modes.items()}
         torch.cuda.synchronize()
         ok &= only_launched(f"opt-out control step ({label}'s batch)", name, 0)
@@ -631,7 +631,7 @@ def opt_out_check(envs, args, outs, card) -> bool:
                                          hf_K=phys.patch_K(env.hf, params),
                                          hf_hs=env.hf.horizontal_scale)
             calls = {"physics.control_step": lambda: phys.control_step(*step[:2], params,
-                                                                       *step[3:])}
+                                                                       *step[3:], spec=spec)}
             if spec.hf_K:   # with no window the spec is the plane's, which the kernel covers
                 calls["fused_control_step"] = lambda: fused_step.fused_control_step(
                     spec, state, actions, dr)
@@ -650,15 +650,13 @@ def opt_out_check(envs, args, outs, card) -> bool:
     return ok
 
 
-def only_launched(what: str, variant: str, expected: int, links: int = None) -> bool:
+def only_launched(what: str, variant: str, expected: int) -> bool:
     """True when `variant` launched `expected` times since the counters were
-    set to 0, `links` of them (all by default) writing the link states, and
-    no other variant at all."""
+    set to 0, and no other variant at all."""
     from legged_gym_custom_tpu_torch.ops import fused_step
 
     counts = fused_step.launch_counts()
-    links = expected if links is None else links
-    mine = {variant: expected, variant + fused_step.LINK_STATES: links}
+    mine = {variant: expected}
     log(f"[launches] {what}: {json.dumps(counts)}; expected {json.dumps(mine)}, the rest 0")
     ok = all(counts.get(name, 0) == n for name, n in mine.items()) and all(
         n == 0 for name, n in counts.items() if name not in mine)
@@ -709,7 +707,7 @@ def train_task(task: str, variant: str, iterations: int = TRAIN_ITERATIONS, firs
             f"env-steps/s (collection {h['collection_s']:.3f}s, learning "
             f"{h['learning_s']:.3f}s){level}")
     log(f"[train] {label}: {len(history)} iterations in {train_s:.1f}s")
-    if not only_launched(label, variant, expected, expected // ticks if ticks else 0):
+    if not only_launched(label, variant, expected):
         return None
     losses = [v for h in history for k, v in h.items() if k.endswith("loss")]
     if len(history) != iterations or not all(np.isfinite(losses)) or not losses:
@@ -1439,7 +1437,7 @@ def other_robots_phase(device, card, envs, specs, names, peaks, pair_kernels):
                                                      spec=env.fused_spec)
         torch.cuda.synchronize()
         ok &= only_launched(f"{task} tick-wise step", fused_step.variant_name(specs[task]),
-                            env.fused_spec.decimation, 1)
+                            env.fused_spec.decimation)
         st_e, info_e, act_e = phys.engine._eager_loop(*args, env._torque_fn, act)
         tol = dict(lstm_tol, dof_vel=HF_TOLERANCES["dof_vel"]) if env.fused_spec.hf_K else lstm_tol
         names_b = NAMES + ["lstm_hidden", "lstm_cell"]
@@ -1799,8 +1797,7 @@ def distributed_phase(card: str, go2_history) -> int:
                 f"{rk['params_sha256'][:16]}, losses finite {rk['losses_finite']}")
         ok = (r["backend"] == backend and r["device"] == "cuda:0"
               and r["process_count"] == world == len(r["ranks"])
-              and all(rk["launches"] == {"fused_control_step": expected,
-                                         "fused_control_step.link_states": expected}
+              and all(rk["launches"] == {"fused_control_step": expected}
                       for rk in r["ranks"])
               and all(rk["losses_finite"] for rk in r["ranks"]) and np.isfinite(r["value_loss"])
               and r["restored_iteration"] == DIST_ITERATIONS + DIST_WARMUP
@@ -1865,7 +1862,7 @@ def train_ranks_run(label, argv, variant, iterations, first_iteration, log_root,
         f"run {wall:.1f}s | {card}")
     ok = (report.get("world_size") == TRAIN_RANKS and report.get("backend") == "gloo"
           and report.get("iteration") == last and report.get("params_bit_equal")
-          and all(rk["launches"] == {variant: expected, variant + ".link_states": expected}
+          and all(rk["launches"] == {variant: expected}
                   and rk["losses_finite"]
                   and rk["device"] == "cuda:0"
                   for rk in report["ranks"])

@@ -7,7 +7,8 @@ with the plant's joint damping, armature and frictionloss (resolved in its
 constraint solver) at 200 Hz, the PD law applied as `qfrc_applied`, four
 steps a control step; the engine runs `physics.control_step` with the task's
 SimParams, PDParams and kernel spec, so that on the card the drop goes through
-the same kernel build as the task (K1 for go2, K2 stiction for go2_stiction).
+the same kernel build as the task (K1 for go2, K2 stiction for go2_stiction),
+or through the eager engine where the task's env has the kernel off.
 
 Two drops, with the gates of tests/test_sim_parity.py:
   * full plant (go2, :100): FULL_PLANT_STEPS control steps; settled base

@@ -229,20 +229,12 @@ class LeggedEnv:
                 dof_meff=phys.effective_joint_inertia(
                     self.ma, default_dof_pos.astype(np.float32),
                     armature=self.sim_params.dof_armature))
-        # the engine on the card, chosen once here: the fused kernel, or, where
-        # the config turns it off (sim.fused_kernel, LGC_FUSED_KERNEL=0 when
-        # built), the eager engine called by name, with no spec
+        # the fused kernel's spec, built once here (None where the config
+        # turns the kernel off: sim.fused_kernel, LGC_FUSED_KERNEL=0 when built)
         configured = bool(getattr(cfg.sim, "fused_kernel", True))
-        self.fused_kernel = configured and fused_step.kernel_enabled()
-        # the fused kernel's compile-time constants, built once host-side: K1
-        # on the plane, K3 (with the contact window's size) on a heightfield,
-        # each with the K2 options ('T' control, implicit stiction) the config asks for
-        self.fused_spec = fused_step.build_spec(
-            self.ma, self.sim_params, self.pd, self.dof_limits,
-            hf_K=phys.patch_K(self.hf, self.sim_params),
-            hf_hs=0.0 if self.hf.is_plane else self.hf.horizontal_scale,
-        ) if self.fused_kernel else None
-        if not self.fused_kernel:
+        self.fused_spec = phys.kernel_spec(self.ma, self.hf, self.sim_params, self.pd,
+                                           self.dof_limits, enabled=configured)
+        if self.fused_spec is None:
             print(f"[env] {name}: the fused kernel is off (sim.fused_kernel={configured}, "
                   f"LGC_FUSED_KERNEL={fused_step.env_flag()}): the eager engine steps "
                   f"{self.num_envs} envs on {self.device}", flush=True)
@@ -367,14 +359,11 @@ class LeggedEnv:
                 DomainRandParams(*[to_cb(x) for x in dr]), self.dof_limits,
                 PhysicsState(*[to_cb(x) for x in physics]), to_cb(actions))
         if self._torque_fn is None:
-            st, info = (phys.control_step(*args, spec=self.fused_spec) if self.fused_kernel
-                        else phys.eager_control_step(*args))
+            st, info = phys.control_step(*args, spec=self.fused_spec)
         else:
             act = _tree_map(to_cb, actuator_state)
-            st, info, actuator_state = (
-                phys.actuated_control_step(*args, act, self._torque_fn, spec=self.fused_spec)
-                if self.fused_kernel
-                else phys.eager_actuated_control_step(*args, act, self._torque_fn))
+            st, info, actuator_state = phys.actuated_control_step(*args, act, self._torque_fn,
+                                                                  spec=self.fused_spec)
             actuator_state = _tree_map(from_cb, actuator_state)
         return (PhysicsState(*[from_cb(x) for x in st]), type(info)(*[from_cb(x) for x in info]),
                 actuator_state)

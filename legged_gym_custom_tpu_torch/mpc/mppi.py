@@ -14,9 +14,10 @@ over a deep hole.
 Each horizon step is one `physics.control_step` on the rollout batch: on
 CUDA tensors one launch of the fused kernel (K1 on the plane, K3 on a
 heightfield, with each rollout's window cut by `patch.extract` inside the
-step), on CPU tensors the eager step.  The solver builds its kernel spec once
-from its own heightfield, so an MPPI over a course other than its env's
-terrain runs the variant that course needs.
+step), on CPU tensors or with the env's kernel off the eager step.  The
+solver builds its kernel spec once (`physics.kernel_spec`) from its own
+heightfield, so an MPPI over a course other than its env's terrain runs the
+variant that course needs.
 
 `solve` draws the noise from a `torch.Generator` and hands it to
 `solve_with_noise`, which is deterministic: the tests feed it the JAX draw.
@@ -29,7 +30,6 @@ from typing import NamedTuple
 import torch
 
 from legged_gym_custom_tpu_torch import physics as phys
-from legged_gym_custom_tpu_torch.ops import fused_step
 from legged_gym_custom_tpu_torch.physics import heightfield as hfield
 from legged_gym_custom_tpu_torch.physics import soa
 from legged_gym_custom_tpu_torch.physics.engine import DomainRandParams, PhysicsState
@@ -147,17 +147,13 @@ class MPPI:
             max_foot_height=float(env.cfg.rewards.max_foot_height),
             percent_time_on_ground=float(env.cfg.rewards.percent_time_on_ground),
         )
-        # The kernel's spec for this solver's own terrain, built once: K1 on
-        # the plane, K3 with the contact window's size on a heightfield.  The
-        # env's `fused_spec` is for the env's terrain, which a caller may
-        # have swapped (an MPPI over a course on a flat env's statics).  None
-        # where the env has the kernel off: the rollouts call the eager engine.
+        # The kernel's spec for this solver's own terrain, built once: the
+        # env's `fused_spec` is for the env's terrain, which a caller may have
+        # swapped (an MPPI over a course on a flat env's statics).  None where
+        # the env has the kernel off.
         self.hf = env.hf
-        self.spec = fused_step.build_spec(
-            env.ma, env.sim_params, env.pd, env.dof_limits,
-            hf_K=phys.patch_K(self.hf, env.sim_params),
-            hf_hs=0.0 if self.hf.is_plane else self.hf.horizontal_scale,
-        ) if env.fused_kernel else None
+        self.spec = phys.kernel_spec(env.ma, self.hf, env.sim_params, env.pd, env.dof_limits,
+                                     enabled=env.fused_spec is not None)
 
     def init_state(self, batch: int) -> MPCState:
         return MPCState(
@@ -189,8 +185,7 @@ class MPPI:
         for t in range(cfg.horizon):
             actions = samples_soa[t]
             step = (env.ma, self.hf, env.sim_params, env.pd, dr, env.dof_limits, ph, actions)
-            ph, info = (phys.control_step(*step, spec=self.spec) if self.spec is not None
-                        else phys.eager_control_step(*step))
+            ph, info = phys.control_step(*step, spec=self.spec)
             with span("lgc.mppi.stage_cost"):
                 costs.append(stage_cost(cfg, self.statics, self.hf, ph, info, commands, actions,
                                         prev_a, phases_seq[t]))

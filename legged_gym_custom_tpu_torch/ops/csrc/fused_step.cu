@@ -24,9 +24,8 @@
 // algorithm with armature and a 6x6 base solve by 3x3 Schur blocks.  After
 // the last substep one more outward kinematics pass over the final state
 // writes the report links' world positions and linear velocities (the
-// reference's link_states, which it runs in XLA after its kernel); a launch
-// given null link-state outputs skips it.  Device memory sees only (C, B)
-// fp32 rows in and out (and for K3 each env's window).
+// reference's link_states, which it runs in XLA after its kernel).  Device
+// memory sees only (C, B) fp32 rows in and out (and for K3 each env's window).
 //
 // What bounds it on this card.  By the count of operations against bytes the
 // step is bound by operations (some 10^5 fp32 operations against ~180 floats
@@ -1205,8 +1204,8 @@ __device__ __forceinline__ void link_states(const float* pos, const float* quat,
 
 // ---------------------------------------------------------------------------
 // The kernel: G lanes per env, (C, B) fp32 rows in and out; for K3 also each
-// env's (K, K) window (batch-leading) and its offsets xoff, yoff (B,); the
-// link states (3 nl, B) when their pointers are not null
+// env's (K, K) window (batch-leading) and its offsets xoff, yoff (B,); out
+// also the link states (3 nl, B)
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(BLOCK)
@@ -1368,8 +1367,7 @@ fused_control_step_kernel(const float* __restrict__ pos_in, const float* __restr
   if (live)
     for (int i = lane; i < 3 * NL; i += G) lf_out[i * B + n] = lf_env[i] * inv_ns;
 
-  if (lpos_out != nullptr)
-    link_states(pos, quat, lin, ang, q, qd, ftab, itab, lane, live, n, B, lpos_out, lvel_out);
+  link_states(pos, quat, lin, ang, q, qd, ftab, itab, lane, live, n, B, lpos_out, lvel_out);
 }
 
 static cudaError_t allow_shared_memory() {
@@ -1388,7 +1386,7 @@ extern "C" int lgc_fused_control_step(const float* pos, const float* quat, const
                                       float* oq, float* oqd, float* olf, float* otau,
                                       float* olpos, float* olvel, int B, void* stream) {
   if (B <= 0) return 0;
-  if ((olpos == nullptr) != (olvel == nullptr)) return cudaErrorInvalidValue;
+  if (olpos == nullptr || olvel == nullptr) return cudaErrorInvalidValue;
 #if LGC_HF_K
   if (patch == nullptr || xoff == nullptr || yoff == nullptr) return cudaErrorInvalidValue;
 #endif

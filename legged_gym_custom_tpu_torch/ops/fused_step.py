@@ -20,12 +20,12 @@ torques, forward kinematics, penalty contact, joint-limit and passive
 torques, ABA with armature and semi-implicit Euler, then one more forward
 kinematics pass that writes the report links' world positions and linear
 velocities (the reference computes these `link_states` in XLA after its
-kernel); a launch without link-state outputs skips that pass.  A group of G lanes of a
-warp runs one env, each lane one branch of the kinematic tree under the base
-(`ops/lane_plan.py::lane_plan`, host numpy), with the state held in registers
-and shared memory across all substeps.  Device memory traffic is the state,
-actions and DR parameters (and for K3 each env's window and its offsets) in
-and the state, link forces, torques and link states out.
+kernel).  A group of G lanes of a warp runs one env, each lane one branch
+of the kinematic tree under the base (`ops/lane_plan.py::lane_plan`, host
+numpy), with the state held in registers and shared memory across all
+substeps.  Device memory traffic is the state, actions and DR parameters
+(and for K3 each env's window and its offsets) in and the state, link
+forces, torques and link states out.
 
 The model constants are baked into the kernel at build time from a
 `FusedSpec` (built host-side in numpy, as the reference's fix 841adc9
@@ -43,11 +43,7 @@ either device.
 
 `LGC_FUSED_KERNEL` set to `0`, `off` or `false`, in any case, reads as the
 kernel turned off (`kernel_enabled`, JAX `_env_flag`); anything else (`auto`
-by default) leaves it on.  An env reads it once, when it is built: there it
-turns the config's `sim.fused_kernel` off, and that env (and an MPPI solver
-over it) then calls the eager engine by name.  This wrapper and
-`physics.control_step` never read it: on CUDA tensors they launch the kernel
-or raise.
+by default) leaves it on.  `physics.engine.kernel_spec` is its one reader.
 """
 from __future__ import annotations
 
@@ -761,13 +757,13 @@ def control_step_components(spec: FusedSpec, st, actions, friction, added_mass, 
     return st, lf_mean, tau
 
 
-def plain_control_step(spec: FusedSpec, state, actions, dr, terrain=None, link_states=True):
-    """`control_step_components` on (C, B) tensors, then, with
-    `link_states`, `link_states_components` on its final state; returns the
-    wrapper's output layout: ((pos, quat, lin, ang, q, qd), link_forces
-    (nl, 3, B), torques (ndof, B), link_pos (nl, 3, B), link_vel (nl, 3, B)),
-    the last two None without `link_states`.  terrain: (patch (B, K, K),
-    xoff (B,), yoff (B,)) for a heightfield spec, else None."""
+def plain_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
+    """`control_step_components` on (C, B) tensors, then
+    `link_states_components` on its final state; returns the wrapper's
+    output layout: ((pos, quat, lin, ang, q, qd), link_forces (nl, 3, B),
+    torques (ndof, B), link_pos (nl, 3, B), link_vel (nl, 3, B)).
+    terrain: (patch (B, K, K), xoff (B,), yoff (B,)) for a heightfield
+    spec, else None."""
     pos, quat, lin, ang, q, qd = state
     friction, added_mass, com_offset, kp_mult, kd_mult = dr
     st = dict(pos=list(pos), quat=list(quat), lin=list(lin), ang=list(ang),
@@ -784,8 +780,6 @@ def plain_control_step(spec: FusedSpec, state, actions, dr, terrain=None, link_s
     out_state = tuple(torch.stack([full(c) for c in st[k]])
                       for k in ("pos", "quat", "lin", "ang", "q", "qd"))
     rows = lambda m: torch.stack([torch.stack([full(c) for c in row]) for row in m])
-    if not link_states:
-        return out_state, rows(lf), torch.stack(tau), None, None
     lpos, lvel = link_states_components(spec, st)
     return out_state, rows(lf), torch.stack(tau), rows(lpos), rows(lvel)
 
@@ -977,7 +971,7 @@ class KernelBuild:
         ptxas, build_seconds = self.build.wait()
         lib = ctypes.CDLL(self.build.lib_path)
         # 12 inputs, the K3 window and its offsets (null for K1), 8 outputs
-        # and the two link-state outputs (null to skip the link pass)
+        # and the two link-state outputs
         lib.lgc_fused_control_step.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int,
                                                                          ctypes.c_void_p]
         lib.lgc_fused_control_step.restype = ctypes.c_int
@@ -1079,36 +1073,34 @@ def _check_inputs(spec: FusedSpec, state, actions, dr, terrain):
     return B, device
 
 
-def launch_kernel(kernel: FusedKernel, spec: FusedSpec, state, actions, dr, terrain=None,
-                  link_states=True):
+def launch_kernel(kernel: FusedKernel, spec: FusedSpec, state, actions, dr, terrain=None):
     """Launch a built kernel on checked CUDA inputs, on the current stream;
-    returns the 10 output tensors, the last two (link positions and
-    velocities, (3 nl, B)) None without `link_states`, where the kernel
-    skips its link pass.  Counts nothing: `fused_control_step` is the
+    returns the 10 output tensors, the last two the link positions and
+    velocities, (3 nl, B).  Counts nothing: `fused_control_step` is the
     wrapper, this is also how a build of another layout is timed."""
     B, device = actions.shape[-1], actions.device
     ndof = len(spec.parent) - 1
     empty = lambda c: torch.empty((c, B), dtype=torch.float32, device=device)
     outs = (empty(3), empty(4), empty(3), empty(3), empty(ndof), empty(ndof),
-            empty(3 * spec.n_links), empty(ndof))
-    links = (empty(3 * spec.n_links), empty(3 * spec.n_links)) if link_states else (None, None)
+            empty(3 * spec.n_links), empty(ndof), empty(3 * spec.n_links),
+            empty(3 * spec.n_links))
     ins = (*state, actions, *dr)
     terrain_ptrs = [t.data_ptr() for t in terrain] if spec.hf_K else [None] * 3
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = kernel.lib.lgc_fused_control_step(
-            *[t.data_ptr() for t in ins], *terrain_ptrs, *[t.data_ptr() for t in outs],
-            *[None if t is None else t.data_ptr() for t in links], B, stream
+            *[t.data_ptr() for t in ins], *terrain_ptrs, *[t.data_ptr() for t in outs], B,
+            stream
         )
     if err != 0:
         raise RuntimeError(
             "fused control-step kernel launch failed: "
             + kernel.lib.lgc_cuda_error_string(err).decode()
         )
-    return (*outs, *links)
+    return outs
 
 
-def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None, link_states=True):
+def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None):
     """One control step for B envs.
 
     state: (pos (3,B), quat (4,B), lin (3,B), ang (3,B), q (ndof,B), qd (ndof,B));
@@ -1119,40 +1111,35 @@ def fused_control_step(spec: FusedSpec, state, actions, dr, terrain=None, link_s
     Returns ((pos, quat, lin, ang, q, qd), link_forces (nl,3,B), torques (ndof,B),
     link_pos (nl,3,B), link_vel (nl,3,B)): the report links' world positions
     and linear velocities at the final state (physics.engine.link_states'
-    math), both None when `link_states` is False, which skips that pass.
+    math).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel, in the
     layout `lanes_for_batch` picks for B, on the current stream, adding one
-    to the variant's counter (`launch_counts`), and with `link_states` one to
-    its link-state counter, or raise.
+    to the variant's counter (`launch_counts`), or raise.
     """
     check_covered(spec)
     B, device = _check_inputs(spec, state, actions, dr, terrain)
     if device.type == "cpu":
-        return plain_control_step(spec, state, actions, dr, terrain, link_states)
+        return plain_control_step(spec, state, actions, dr, terrain)
     if device.type != "cuda":
         raise RuntimeError(f"fused_control_step: unsupported device {device}")
     kernel = load_kernel(spec, B)
-    outs = launch_kernel(kernel, spec, state, actions, dr, terrain, link_states)
-    name = variant_name(spec)
+    outs = launch_kernel(kernel, spec, state, actions, dr, terrain)
     if spec.control_type == "T" or spec.fl_dqd:
+        name = variant_name(spec)
         fused_control_step.k2_launches[name] = fused_control_step.k2_launches.get(name, 0) + 1
     elif spec.hf_K:
         fused_control_step.hf_launches += 1
     else:
         fused_control_step.launches += 1
-    if link_states:
-        counts = fused_control_step.link_launches
-        counts[name] = counts.get(name, 0) + 1
     opos, oquat, olin, oang, oq, oqd, olf, otau, olpos, olvel = outs
-    rows = lambda t: None if t is None else t.view(spec.n_links, 3, B)
+    rows = lambda t: t.view(spec.n_links, 3, B)
     return (opos, oquat, olin, oang, oq, oqd), rows(olf), otau, rows(olpos), rows(olvel)
 
 
 fused_control_step.launches = 0      # K1, the plane variant
 fused_control_step.hf_launches = 0   # K3, the heightfield variant
 fused_control_step.k2_launches = {}  # K2: `variant_name` -> launches
-fused_control_step.link_launches = {}  # `variant_name` -> launches that wrote link states
 
 
 def variant_name(spec: FusedSpec) -> str:
@@ -1163,22 +1150,14 @@ def variant_name(spec: FusedSpec) -> str:
             + ("_stiction" if spec.fl_dqd else "") + ("_hf" if spec.hf_K else ""))
 
 
-LINK_STATES = ".link_states"   # suffix of a variant's link-state counter
-
-
 def launch_counts() -> dict:
-    """Launches so far of every variant that has a counter, by `variant_name`,
-    and under `variant_name + LINK_STATES` those of them that wrote the link
-    states (all of a control step's launch; the last tick's of a tick-wise
-    step)."""
+    """Launches so far of every variant that has a counter, by `variant_name`."""
     return {"fused_control_step": fused_control_step.launches,
             "fused_control_step_hf": fused_control_step.hf_launches,
-            **fused_control_step.k2_launches,
-            **{name + LINK_STATES: n for name, n in fused_control_step.link_launches.items()}}
+            **fused_control_step.k2_launches}
 
 
 def reset_launch_counts() -> None:
     fused_control_step.launches = 0
     fused_control_step.hf_launches = 0
     fused_control_step.k2_launches = {}
-    fused_control_step.link_launches = {}

@@ -18,9 +18,8 @@ from .engine import (
     StepInfo,
     actuated_control_step,
     control_step,
-    eager_actuated_control_step,
-    eager_control_step,
     effective_joint_inertia,
+    kernel_spec,
     link_states,
     patch_K,
     substep,

@@ -11,18 +11,19 @@ each env once per control step (physics/patch.py), and the contact surface
 under each sphere is sampled at the first substep of every decimation tick
 and held through the tick (`terrain_tick_sample`).
 
-On CUDA tensors `control_step` runs the whole control step as one launch of
-the hand-written kernel (ops/fused_step.py, ops/csrc/fused_step.cu): the
-plane variant on the flat plane, the heightfield variant with the per-env
-windows as input on a heightfield.  The kernel also writes the link states
-of the final state, so `link_states` runs only in the eager engine.  It
-raises NotImplementedError for a configuration the kernel does not cover
-and never falls back to the eager path on the card.  On CPU tensors it runs `eager_control_step`, the plain
-PyTorch version of the same function.  An env whose config turns the kernel
-off (`sim.fused_kernel = False`, or `LGC_FUSED_KERNEL=0` when it is built)
-calls `eager_control_step` / `eager_actuated_control_step` by name instead,
-on either device: that is how the heightfield modes the kernel does not
-cover run on the card.
+`kernel_spec` decides once, when an env or an MPPI solver is built, whether
+its control steps run the hand-written kernel (ops/fused_step.py,
+ops/csrc/fused_step.cu): it returns the kernel's FusedSpec, or None where
+the config's `sim.fused_kernel` or `LGC_FUSED_KERNEL=0` turns the kernel
+off.  `control_step` and `actuated_control_step` follow one rule: with a
+spec, on CUDA tensors, the kernel runs the step (one launch, the plane
+variant on the flat plane, the heightfield variant with the per-env windows
+as input on a heightfield; one launch a tick for a stateful actuator) and
+also writes the link states of the final state; a configuration it does
+not cover raises NotImplementedError rather than fall back.  Otherwise
+(CPU tensors, or no spec) the eager loop, in plain PyTorch ops, runs it:
+that is how the heightfield modes the kernel does not cover run on the
+card.
 """
 from __future__ import annotations
 
@@ -261,26 +262,6 @@ def _eager_loop(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParam
     return state, StepInfo(link_forces, pos, vel, tau), actuator_state
 
 
-def eager_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,
-                       dr: DomainRandParams, dof_limits: tuple, state: PhysicsState, actions):
-    """The control step in plain PyTorch ops: decimation x substeps with the
-    PD torques refreshed from the current dof state at every tick, as the
-    reference's XLA path (engine.py:301-380)."""
-    with span("lgc.physics"):
-        return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions)[:2]
-
-
-def eager_actuated_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams,
-                                pd: PDParams, dr: DomainRandParams, dof_limits: tuple,
-                                state: PhysicsState, actions, actuator_state, torque_fn):
-    """A stateful actuator's control step in plain PyTorch ops, as the
-    reference's XLA path with `torque_fn` (engine.py:301-380).
-    Returns (state', StepInfo, actuator_state')."""
-    with span("lgc.physics"):
-        return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions, torque_fn,
-                           actuator_state)
-
-
 def _check_kernel_terrain(hf: Heightfield, params: SimParams):
     """Raise for a heightfield the kernel's variants do not cover."""
     if hf.is_plane:
@@ -297,18 +278,33 @@ def _check_kernel_terrain(hf: Heightfield, params: SimParams):
             "once per decimation tick and has no per-substep variant" + opt_out)
 
 
+def kernel_spec(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,
+                dof_limits: tuple, enabled: bool = True):
+    """The fused kernel's FusedSpec for this plant on `hf`, built host-side
+    once by the caller: K1 on the plane, K3 with the contact window's size
+    on a heightfield, each with the K2 options ('T' control, implicit
+    stiction) the plant asks for.  None where `enabled` (the config's
+    `sim.fused_kernel`) is False or `LGC_FUSED_KERNEL` turns the kernel off:
+    the control steps given None run the eager loop on either device."""
+    from ..ops import fused_step
+
+    if not (enabled and fused_step.kernel_enabled()):
+        return None
+    return fused_step.build_spec(ma, params, pd, dof_limits, hf_K=patch_K(hf, params),
+                                 hf_hs=0.0 if hf.is_plane else hf.horizontal_scale)
+
+
 def control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDParams,
                  dr: DomainRandParams, dof_limits: tuple, state: PhysicsState, actions,
                  spec=None):
     """Full 50 Hz control step.  Returns (state', StepInfo).
 
-    CUDA tensors go through the fused kernel (`spec` is its FusedSpec, built
-    once by the caller; built here from the model when omitted): on a
-    heightfield the per-env windows are cut here and passed to the kernel's
-    heightfield variant.  CPU tensors run `eager_control_step`.
+    With a `spec` (`kernel_spec`), CUDA tensors go through the fused kernel:
+    on a heightfield the per-env windows are cut here and passed to the
+    kernel's heightfield variant.  Otherwise the eager loop runs the step.
     """
     with span("lgc.physics"):
-        if not state.dof_pos.is_cuda:
+        if spec is None or not state.dof_pos.is_cuda:
             return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions)[:2]
         from ..ops import fused_step
 
@@ -317,9 +313,6 @@ def control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, pd: PDPara
         if not hf.is_plane:
             lp = patch.extract(hf, state.base_pos[0], state.base_pos[1], patch_K(hf, params))
             terrain = fused_step.patch_inputs(lp)
-        if spec is None:
-            spec = fused_step.build_spec(ma, params, pd, dof_limits, hf_K=patch_K(hf, params),
-                                         hf_hs=0.0 if hf.is_plane else hf.horizontal_scale)
         out_state, link_forces, torques, lpos, lvel = fused_step.fused_control_step(
             spec,
             tuple(state),
@@ -340,8 +333,8 @@ def tickwise_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, p
     substeps with them as the actions; each `torque_fn` call is an
     `lgc.actuator` span.  On a heightfield the per-env windows
     are cut once, before the first tick, and every tick reads them, as the
-    reference's XLA path does (engine.py:306-315); the last tick's launch
-    also writes the link states, the others skip that pass.
+    reference's XLA path does (engine.py:306-315); the link states returned
+    are the last tick's.
     `fused_control_step` runs the kernel on CUDA tensors and its plain
     version on CPU tensors.
     Returns (state', StepInfo, actuator_state')."""
@@ -355,12 +348,12 @@ def tickwise_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, p
     dr_in = (dr.friction, dr.added_mass, dr.com_offset, dr.kp_mult, dr.kd_mult)
     tlim = soa.bcast(pd.torque_limits, tuple(state.dof_pos.shape[1:]))
     st, link_forces, tau, lpos, lvel = tuple(state), None, None, None, None
-    for tick in range(spec.decimation):
+    for _tick in range(spec.decimation):
         with span("lgc.actuator"):
             tau, actuator_state = torque_fn(actions, st[4], st[5], actuator_state)
         tau = torch.maximum(torch.minimum(tau, tlim), -tlim).contiguous()
-        st, link_forces, tau, lpos, lvel = fused_step.fused_control_step(
-            one, st, tau, dr_in, terrain, link_states=tick == spec.decimation - 1)
+        st, link_forces, tau, lpos, lvel = fused_step.fused_control_step(one, st, tau, dr_in,
+                                                                         terrain)
     return PhysicsState(*st), StepInfo(link_forces, lpos, lvel, tau), actuator_state
 
 
@@ -373,18 +366,12 @@ def actuated_control_step(ma: ModelArrays, hf: Heightfield, params: SimParams, p
     (tau, act_state')` replaces the PD law at every decimation tick.
     Returns (state', StepInfo, actuator_state').
 
-    CPU tensors run the eager loop; CUDA tensors run `tickwise_control_step`
-    through the kernel (`spec` is the env's FusedSpec, built here when
-    omitted) and raise rather than fall back to the eager loop."""
+    With a `spec`, CUDA tensors run `tickwise_control_step` through the
+    kernel; otherwise the eager loop runs the step, as in `control_step`."""
     with span("lgc.physics"):
-        if not state.dof_pos.is_cuda:
+        if spec is None or not state.dof_pos.is_cuda:
             return _eager_loop(ma, hf, params, pd, dr, dof_limits, state, actions, torque_fn,
                                actuator_state)
-        from ..ops import fused_step
-
         _check_kernel_terrain(hf, params)
-        if spec is None:
-            spec = fused_step.build_spec(ma, params, pd, dof_limits, hf_K=patch_K(hf, params),
-                                         hf_hs=0.0 if hf.is_plane else hf.horizontal_scale)
         return tickwise_control_step(ma, hf, params, pd, dr, dof_limits, state, actions,
                                      actuator_state, torque_fn, spec)

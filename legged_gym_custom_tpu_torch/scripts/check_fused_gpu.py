@@ -15,9 +15,9 @@ Run on the card (it checks the kernel, so it refuses the CPU):
         [--rollout 25] [--roofline] [--out receipt.json]
 
 Prints one JSON line with the parity deltas and the env-steps/s of both
-paths, and of the eager engine (`physics.eager_control_step`, what an env
-with the kernel off steps, the counterpart of the reference's `xla_ms`), with the
-card's `nvidia-smi` name and power limit.  `--rollout N`
+paths, and of the eager engine (`physics.control_step` with no spec, what
+an env with the kernel off steps, the counterpart of the reference's
+`xla_ms`), with the card's `nvidia-smi` name and power limit.  `--rollout N`
 adds the closed-loop distributional gate (KS statistic of trajectory
 statistics, plain version against kernel, gate 0.05); `--roofline` prints
 the kernel-only speed-of-light accounting of ops/roofline.py instead.
@@ -148,17 +148,17 @@ def kernel_step(p: Plant, state, actions):
 
 
 def eager_step(p: Plant, state, actions):
-    """One control step of the eager engine (`physics.eager_control_step`,
-    the windows cut, no launch), as an env with the kernel off steps."""
-    st, info = phys.eager_control_step(p.ma, p.hf, p.params, p.pd, p.dr, p.dof_limits, state,
-                                       actions)
+    """One control step of the eager engine (`physics.control_step` with no
+    spec, the windows cut, no launch), as an env with the kernel off steps."""
+    st, info = phys.control_step(p.ma, p.hf, p.params, p.pd, p.dr, p.dof_limits, state,
+                                 actions, spec=None)
     return st, StepOut(info.link_forces, info.torques)
 
 
 def plain_step(p: Plant, state, actions):
     """One control step of the kernel's plain version on the same inputs."""
     st, lf, tau = fused_step.plain_control_step(p.spec, tuple(state), actions, tuple(p.dr),
-                                                _terrain(p, state), link_states=False)[:3]
+                                                _terrain(p, state))[:3]
     return phys.PhysicsState(*(x.contiguous() for x in st)), StepOut(lf, tau)
 
 

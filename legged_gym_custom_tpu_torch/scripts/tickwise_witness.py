@@ -24,7 +24,8 @@ also held against the eager engine in float64 on the same float32 inputs,
 the answer both float32 paths round away from: where the float32 eager
 engine lies as far from it as the tick-wise path does, the gap between them
 is rounding; a fault would put the tick-wise path farther.  On CUDA tensors
-the tick-wise path runs the kernel, on CPU tensors its plain version.
+the tick-wise path runs the kernel, on CPU tensors its plain version; the
+envs are built with the kernel on (`LGC_FUSED_KERNEL` not 0).
 
 Prints one JSON object with the card's name and power limit, also written
 to `--out`."""
@@ -177,9 +178,7 @@ def reached_states(task: str, envs: int, steps: int, seed: int, net_file: str, d
 def witness(task: str, weights: LSTMWeights, envs: int, steps: int, seed: int, net_file: str,
             device) -> dict:
     env, state, dr, actions, act = reached_states(task, envs, steps, seed, net_file, device)
-    spec = env.fused_spec if env.fused_spec is not None else fused_step.build_spec(
-        env.ma, env.sim_params, env.pd, env.dof_limits, hf_K=phys.patch_K(env.hf, env.sim_params),
-        hf_hs=0.0 if env.hf.is_plane else env.hf.horizontal_scale)
+    spec = env.fused_spec
     one = fused_step.tick_spec(spec)
     base = (env.ma, env.hf, env.sim_params, env.pd, dr, env.dof_limits, state, actions)
     f64 = lambda x: cast(x, torch.float64)
@@ -190,7 +189,7 @@ def witness(task: str, weights: LSTMWeights, envs: int, steps: int, seed: int, n
     tlim = env.pd.torque_limits[:, None]
     tau0 = torch.maximum(torch.minimum(sea(actions, state.dof_pos, state.dof_vel, act)[0], tlim),
                          -tlim).contiguous()
-    eager = lambda args, a, fn: phys.eager_actuated_control_step(*args, a, fn)
+    eager = lambda args, a, fn: phys.actuated_control_step(*args, a, fn, spec=None)
     out = {"task": task, "envs": envs, "terrain": "plane" if env.hf.is_plane else "trimesh",
            "window": one.hf_K}
 

@@ -130,25 +130,26 @@ def test_eager_actuated_step_matches_reference(envs):
 def test_tickwise_path_matches_eager_loop(envs, monkeypatch):
     """The card's path with CPU tensors: `decimation` calls of the one-tick
     'T' spec through `fused_control_step` (its plain version here), the
-    window cut once, the link states written by the last, against the eager
-    loop."""
+    window cut once, each writing the link states and the step returning the
+    last tick's, against the eager loop."""
     _, env_t = envs
     state, actions, dr, act = _batch(env_t, 2)
     args = _port_args(env_t, state, actions, dr)
-    st_e, info_e, act_e = tphys.actuated_control_step(*args, act, env_t._torque_fn)
+    st_e, info_e, act_e = tphys.actuated_control_step(*args, act, env_t._torque_fn, spec=None)
 
-    cuts, calls = [], []
+    cuts, calls, outs = [], [], []
     extract, fused = patch.extract, fused_step.fused_control_step
     monkeypatch.setattr(patch, "extract", lambda *a, **k: cuts.append(1) or extract(*a, **k))
     monkeypatch.setattr(fused_step, "fused_control_step",
-                        lambda spec, *a, **k: calls.append((spec, k["link_states"]))
-                        or fused(spec, *a, **k))
+                        lambda spec, *a: calls.append(spec) or outs.append(fused(spec, *a))
+                        or outs[-1])
     st_k, info_k, act_k = tphys.tickwise_control_step(*args, act, env_t._torque_fn,
                                                       env_t.fused_spec)
     one = fused_step.tick_spec(env_t.fused_spec)
-    # the last tick's launch alone writes the link states
-    assert [spec for spec, _ in calls] == [one] * env_t.fused_spec.decimation == [one] * 4
-    assert [links for _, links in calls] == [False, False, False, True]
+    # every tick's launch writes the link states; the step returns the last tick's
+    assert calls == [one] * env_t.fused_spec.decimation == [one] * 4
+    assert all(out[3] is not None and out[4] is not None for out in outs)
+    assert info_k.link_pos is outs[-1][3] and info_k.link_vel is outs[-1][4]
     assert len(cuts) == (0 if env_t.hf.is_plane else 1)
     assert (one.decimation, one.control_type, one.action_scale) == (1, "T", 1.0)
     assert one._replace(decimation=4, control_type="P", action_scale=0.5) == env_t.fused_spec

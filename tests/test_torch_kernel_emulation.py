@@ -135,20 +135,17 @@ def _case(case, tmp_path):
     return spec, handle, (state, actions, dr, terrain)
 
 
-def _launch(spec, handle, inputs, link_states=True):
+def _launch(spec, handle, inputs):
     """One launch of the host build; its 10 outputs, NaN where nothing was
-    stored, the link states' buffers given as null pointers unless
-    `link_states`."""
+    stored."""
     state, actions, dr, terrain = inputs
     B, ndof, nl = actions.shape[-1], len(spec.parent) - 1, spec.n_links
     empty = lambda c: torch.full((c, B), float("nan"))
     outs = (empty(3), empty(4), empty(3), empty(3), empty(ndof), empty(ndof), empty(3 * nl),
             empty(ndof), empty(3 * nl), empty(3 * nl))
     window = [t.data_ptr() for t in terrain] if terrain else [None] * 3
-    given = outs if link_states else outs[:8]
     err = handle.lgc_fused_control_step(*[t.data_ptr() for t in (*state, actions, *dr)], *window,
-                                        *[t.data_ptr() for t in given],
-                                        *[None] * (len(outs) - len(given)), B, None)
+                                        *[t.data_ptr() for t in outs], B, None)
     assert err == 0
     rows = lambda t: t.view(nl, 3, B)
     return (*outs[:6], rows(outs[6]), outs[7], rows(outs[8]), rows(outs[9]))
@@ -166,19 +163,3 @@ def test_kernel_source_on_the_host_matches_plain_version(case, tmp_path):
         torch.testing.assert_close(a, b, atol=atol, rtol=rtol, msg=lambda m: f"{name}: {m}")
     if spec.fl_dqd:      # the joints held at exactly zero velocity, if any, are the same set
         assert int(((got[5] == 0) != (ref[0][5] == 0)).sum()) <= 0.01 * got[5].numel()
-
-
-@pytest.mark.parametrize("case", ["anymal-plane-T-one-tick-pairs", "cassie-hf-P-tanh-deep"])
-def test_kernel_source_skips_the_link_pass_on_null_outputs(case, tmp_path):
-    """Null link-state pointers (a tick-wise step's ticks before the last)
-    skip the pass: their buffers stay untouched and every other output is
-    the same to the bit as with the pass."""
-    spec, handle, inputs = _case(case, tmp_path)
-    full = _launch(spec, handle, inputs)
-    skipped = _launch(spec, handle, inputs, link_states=False)
-    assert all(bool(torch.isnan(t).all()) for t in skipped[8:])
-    assert all(bool(torch.isfinite(t).all()) for t in full[8:])
-    for a, b in zip(full[:8], skipped[:8]):
-        assert torch.equal(a, b)
-    plain = fused_step.plain_control_step(spec, *inputs, link_states=False)
-    assert plain[3] is None and plain[4] is None

@@ -63,10 +63,8 @@ NAMES = ("base_pos", "base_quat", "lin_vel", "ang_vel", "dof_pos", "dof_vel",
 # output state: only the rounding differs, so every entry is held, with the
 # tolerances of the base's position and linear velocity
 LINK_TOL = dict(link_pos=TOL["base_pos"], link_vel=TOL["lin_vel"])
-LINKS = fused_step.LINK_STATES
-# a go2 rank's counters after one iteration: K1 once an env step and in
-# `reset_all`, every launch writing the link states
-K1_ITERATION = {"fused_control_step": 1 + 24, "fused_control_step" + LINKS: 1 + 24}
+# a go2 rank's counters after one iteration: K1 once an env step and in `reset_all`
+K1_ITERATION = {"fused_control_step": 1 + 24}
 
 
 def _assert_link_states(ma, state, link_pos, link_vel):
@@ -78,8 +76,8 @@ def _assert_link_states(ma, state, link_pos, link_vel):
 
 
 def _others_unchanged(before, after, name):
-    """No counter but `name`'s and its link-state counter moved."""
-    return all(after[k] == before[k] for k in before if k not in (name, name + LINKS))
+    """No counter but `name`'s moved."""
+    return all(after[k] == before[k] for k in before if k != name)
 
 
 @pytest.mark.cuda
@@ -109,8 +107,7 @@ def test_engine_on_card_runs_the_kernel_and_matches_eager(go2_env):
     after = fused_step.launch_counts()
     name = "fused_control_step"
     assert after[name] == before[name] + 1          # the kernel writes the link states too
-    assert after[name + LINKS] == before.get(name + LINKS, 0) + 1
-    st_e, info_e = tphys.eager_control_step(*args)
+    st_e, info_e = tphys.control_step(*args, spec=None)
     _assert_close_p99(NAMES, (*st, info.link_forces, info.torques),
                       (*st_e, info_e.link_forces, info_e.torques))
     _assert_link_states(env.ma, st, info.link_pos, info.link_vel)
@@ -154,27 +151,6 @@ def test_wrapper_raises_on_the_card_for_what_the_kernel_does_not_take(go2_env):
         fused_step.fused_control_step(spec, state, actions.t().contiguous().t(), dr)
     with pytest.raises(ValueError):
         fused_step.fused_control_step(spec, state, actions.cpu(), dr)
-
-
-@pytest.mark.cuda
-def test_kernel_skips_the_link_pass_without_link_outputs(go2_env):
-    """`link_states=False` launches with null link-state outputs: the kernel
-    skips its last outward pass, returns None for them, counts the launch
-    but no link-state write, and every other output is the same to the bit
-    as with the pass."""
-    spec = go2_env.fused_spec
-    state, actions, dr = _batch(42)
-    name = "fused_control_step"
-    before = fused_step.launch_counts()
-    full = fused_step.fused_control_step(spec, state, actions, dr)
-    skipped = fused_step.fused_control_step(spec, state, actions, dr, link_states=False)
-    torch.cuda.synchronize()
-    after = fused_step.launch_counts()
-    assert after[name] == before[name] + 2
-    assert after[name + LINKS] == before.get(name + LINKS, 0) + 1
-    assert skipped[3] is None and skipped[4] is None
-    for a, b in zip((*full[0], full[1], full[2]), (*skipped[0], skipped[1], skipped[2])):
-        assert torch.equal(a, b)
 
 
 @pytest.fixture(scope="module")
@@ -259,7 +235,7 @@ def test_engine_on_card_runs_the_heightfield_kernel_and_matches_eager(parkour_en
     torch.cuda.synchronize()
     assert (fused_step.fused_control_step.launches,
             fused_step.fused_control_step.hf_launches) == (before[0], before[1] + 1)
-    st_e, info_e = tphys.eager_control_step(*args)
+    st_e, info_e = tphys.control_step(*args, spec=None)
     _assert_close_p99(NAMES, (*st, info.link_forces, info.torques),
                       (*st_e, info_e.link_forces, info_e.torques), HF_TOL)
     _assert_link_states(env.ma, st, info.link_pos, info.link_vel)
@@ -294,12 +270,12 @@ def test_engine_on_card_raises_for_uncovered_heightfield_variants(parkour_env):
 
 @pytest.mark.cuda
 def test_opt_out_runs_the_eager_engine_on_the_card(go2_env, parkour_env, monkeypatch):
-    """The eager engine that an env with the kernel off calls by name
-    (`physics.eager_control_step`) launches no kernel on CUDA tensors and
-    agrees with the kernel's step on the same inputs (the go2 batch, and the
-    gap-course batch); the heightfield modes no kernel covers run in it.
+    """The eager engine that an env with the kernel off steps
+    (`physics.control_step` with no spec) launches no kernel on CUDA tensors
+    and agrees with the kernel's step on the same inputs (the go2 batch, and
+    the gap-course batch); the heightfield modes no kernel covers run in it.
     `LGC_FUSED_KERNEL=0` in the environment does not reach
-    `physics.control_step`: it still launches the kernel."""
+    `physics.control_step`: given a spec, it still launches the kernel."""
     monkeypatch.setenv("LGC_FUSED_KERNEL", "0")
     for env, (state, actions, dr), tol in ((go2_env, _batch(30), TOL),
                                            (parkour_env, _parkour_batch(parkour_env, 31), HF_TOL)):
@@ -310,10 +286,11 @@ def test_opt_out_runs_the_eager_engine_on_the_card(go2_env, parkour_env, monkeyp
         torch.cuda.synchronize()
         counts = {k: n for k, n in fused_step.launch_counts().items() if n}
         name = fused_step.variant_name(env.fused_spec)
-        assert counts == {name: 1, name + LINKS: 1}
+        assert counts == {name: 1}
         fused_step.reset_launch_counts()
-        st, info = tphys.eager_control_step(*args)
-        modes = [tphys.eager_control_step(*args[:2], env.sim_params._replace(**mode), *args[3:])
+        st, info = tphys.control_step(*args, spec=None)
+        modes = [tphys.control_step(*args[:2], env.sim_params._replace(**mode), *args[3:],
+                                    spec=None)
                  for mode in (dict(patch_halfwidth=0.0), dict(terrain_tick_sample=False))]
         torch.cuda.synchronize()
         assert not any(fused_step.launch_counts().values())
@@ -346,7 +323,7 @@ def test_opt_out_env_mppi_and_actuated_step_launch_nothing(card, tmp_path_factor
     fused_step.reset_launch_counts()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for e in (env, anymal, go2):
-        assert not e.fused_kernel and e.fused_spec is None
+        assert e.fused_spec is None
         state, _ = e.reset_all(gen)
         state, obs, rew, _, _ = e.step(state, torch.zeros((e.num_envs, e.num_actions),
                                                           device="cuda"))
@@ -358,6 +335,26 @@ def test_opt_out_env_mppi_and_actuated_step_launch_nothing(card, tmp_path_factor
     torch.cuda.synchronize()
     assert mpc.spec is None and bool(torch.isfinite(actions).all())
     assert not any(fused_step.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_oracle_drop_of_an_env_with_the_kernel_off_launches_nothing(card, monkeypatch):
+    """The MuJoCo oracle's drop follows its env: go2 built under
+    `LGC_FUSED_KERNEL=0` has no spec, so `engine_drop` runs the eager engine
+    on the card, launches no kernel and keeps the full-plant drop's gates
+    against the stored MuJoCo run."""
+    from legged_gym_custom_tpu_torch.deploy import mujoco_oracle as oracle
+
+    monkeypatch.setenv("LGC_FUSED_KERNEL", "0")
+    env = oracle.task_env("go2", 4, "cuda")
+    monkeypatch.delenv("LGC_FUSED_KERNEL")
+    assert env.fused_spec is None
+    fused_step.reset_launch_counts()
+    base_pos, dof_pos, _ = oracle.engine_drop(env, 4, steps=oracle.FULL_PLANT_STEPS)
+    torch.cuda.synchronize()
+    assert not any(fused_step.launch_counts().values())
+    gaps = oracle.full_plant_gaps(base_pos, dof_pos, oracle.load_oracle()["qpos"])
+    assert gaps["ok"], gaps
 
 
 @pytest.mark.cuda
@@ -435,7 +432,6 @@ def test_stiction_kernel_matches_plain_version(stiction_env):
     torch.cuda.synchronize()
     after = fused_step.launch_counts()
     assert after[name] == before.get(name, 0) + 1
-    assert after[name + LINKS] == before.get(name + LINKS, 0) + 1
     assert _others_unchanged(before, after, name)
     ref = fused_step.plain_control_step(spec, state, actions, dr)
     _assert_close_p99(NAMES, (*out[0], out[1], out[2]), (*ref[0], ref[1], ref[2]))
@@ -447,7 +443,7 @@ def test_stiction_kernel_matches_plain_version(stiction_env):
     st, info = tphys.control_step(*args, spec=spec)
     torch.cuda.synchronize()
     assert fused_step.launch_counts()[name] == after[name] + 1
-    st_e, info_e = tphys.eager_control_step(*args)
+    st_e, info_e = tphys.control_step(*args, spec=None)
     _assert_close_p99(NAMES, (*st, info.link_forces, info.torques),
                       (*st_e, info_e.link_forces, info_e.torques))
     _assert_link_states(env.ma, st, info.link_pos, info.link_vel)
@@ -578,9 +574,7 @@ def test_actuated_step_on_card_runs_the_one_tick_kernel(task, tmp_path_factory):
     torch.cuda.synchronize()
     after = fused_step.launch_counts()
     assert after[name] == before.get(name, 0) + env.fused_spec.decimation
-    # the link states once a control step: one launch in four writes them
     assert env.fused_spec.decimation == 4
-    assert after[name + LINKS] == before.get(name + LINKS, 0) + 1
     assert _others_unchanged(before, after, name)
     st_e, info_e, act_e = tphys.engine._eager_loop(*args, env._torque_fn, act)
     tol = HF_TOL if env.fused_spec.hf_K else TOL
@@ -660,7 +654,7 @@ def test_fused_kernel_receipt_passes_its_ks_gate(terrain, card, tmp_path):
     assert out["rollout_pass"] and max(out["rollout_ks"].values()) < 0.05
     variant = "fused_control_step_hf" if terrain else "fused_control_step"
     counts = {k: n for k, n in fused_step.launch_counts().items() if n}
-    assert counts == {variant: 1 + 6 + 10, variant + LINKS: 1 + 6 + 10}
+    assert counts == {variant: 1 + 6 + 10}
     assert out["kernel_ms"] > 0.0 and out["speedup"] > 1.0
     assert out["parity_outlier_env_frac"]["dof_pos"] <= 0.01
 

@@ -186,8 +186,8 @@ def test_kinematics_and_aba_match_reference(robot):
 
 
 def test_eager_control_step_matches_reference(robot, monkeypatch):
-    """One eager `control_step` against JAX `engine.control_step` with the
-    kernel off, on the go2 plant at B = 32."""
+    """One eager `control_step` (no spec) against JAX `engine.control_step`
+    with the kernel off, on the go2 plant at B = 32."""
     monkeypatch.setenv("LGC_FUSED_KERNEL", "0")
     urdf, default_pos = robot
     (ma_j, pd_j, dl_j), (ma_t, pd_t, dl_t) = _both(urdf, default_pos)
@@ -200,7 +200,7 @@ def test_eager_control_step_matches_reference(robot, monkeypatch):
     T = torch.as_tensor
     st, info = tphys.control_step(ma_t, tphys.plane(), _plant(ndof, False), pd_t,
                                   tphys.DomainRandParams(*map(T, dr)), dl_t,
-                                  tphys.PhysicsState(*map(T, state)), T(actions))
+                                  tphys.PhysicsState(*map(T, state)), T(actions), spec=None)
     for name, a, b in zip(STATE, ref_state, st):
         _close(name, b, a)
     _close("link_forces", info.link_forces, ref_info.link_forces)

@@ -7,15 +7,16 @@ and its `LGC_FUSED_KERNEL` opt-out, against the JAX package on the CPU:
   * `LeggedEnv.num_proprio` for every registered task;
   * the flag reader against JAX `_env_flag` (ops/fused_step.py:859-860) and
     the opt-out's decision on each value; an env reads it once, when built,
-    into its `fused_kernel` choice, says so, and then calls the eager engine
-    by name;
+    into its spec (None with the kernel off), says so, and then never reaches
+    the kernel's wrapper;
   * the eager control step of the opt-out in the heightfield modes the
     kernel does not cover (`terrain_tick_sample=False`, `patch_halfwidth=0`,
     both) against JAX `control_step` with the kernel off, on the gap table
     of tests/test_torch_hf_step.py, seeds 8 and 21 in one batch, at that
     file's tolerances (dof_vel atol 2e-2, link forces atol 0.05);
-  * an env and an MPPI solver built under the opt-out carry no kernel spec;
-    a spec of the per-substep mode builds, and the wrapper refuses it.
+  * an env and an MPPI solver built under the opt-out carry no kernel spec
+    and never reach the wrapper; a spec of the per-substep mode builds, and
+    the wrapper refuses it.
 """
 import numpy as np
 import pytest
@@ -151,15 +152,15 @@ def test_flag_reader_matches_jax(monkeypatch, value):
 
 
 def _fail(*args, **kwargs):
-    raise AssertionError("an env with the kernel off called the kernel's path")
+    raise AssertionError("an env with the kernel off reached the kernel's wrapper")
 
 
 def test_env_reads_the_flag_once_when_built(monkeypatch, capsys):
     """An env built under `LGC_FUSED_KERNEL=0`, or with `sim.fused_kernel`
     False, turns the kernel off and says so; the choice stays after the flag
-    is gone, and its step calls the eager engine by name, not
-    `physics.control_step`.  Built with neither, it keeps the kernel and
-    prints nothing."""
+    is gone, and its step never reaches the kernel's wrapper
+    (`fused_step.fused_control_step`).  Built with neither, it keeps the
+    kernel and prints nothing."""
     def build(fused_kernel=True):
         cfg, _ = task_registry.get_cfgs("go2")
         cfg.env.num_envs = 2
@@ -176,10 +177,10 @@ def test_env_reads_the_flag_once_when_built(monkeypatch, capsys):
         capsys.readouterr().out
     on = build()
     assert "fused kernel" not in capsys.readouterr().out
-    assert on.fused_kernel and on.fused_spec is not None
-    monkeypatch.setattr(tphys, "control_step", _fail)
+    assert on.fused_spec is not None
+    monkeypatch.setattr(tfused, "fused_control_step", _fail)
     for env in (flagged, configured):
-        assert not env.fused_kernel and env.fused_spec is None
+        assert env.fused_spec is None
         state, _ = env.reset_all(torch.Generator().manual_seed(0))
         state, obs, rew, _, _ = env.step(state, torch.zeros(2, env.num_actions))
         assert torch.isfinite(obs.obs).all() and torch.isfinite(rew).all()
@@ -241,8 +242,8 @@ def test_spec_of_an_uncovered_mode_builds():
 
 def test_env_and_mppi_under_the_opt_out_carry_no_spec(monkeypatch):
     """Under the opt-out an env of an uncovered mode builds with no spec on
-    the CPU and steps; MPPI's solver has none either, and its rollouts call
-    the eager engine by name.  Without it, the env's spec is back."""
+    the CPU and steps; MPPI's solver has none either, and neither reaches
+    the kernel's wrapper.  Without it, the env's spec is back."""
     from legged_gym_custom_tpu_torch.mpc import MPPI, MPPIConfig
 
     cfg, _ = task_registry.get_cfgs("go2_parkour")
@@ -253,7 +254,7 @@ def test_env_and_mppi_under_the_opt_out_carry_no_spec(monkeypatch):
     env.sim_params = env.sim_params._replace(terrain_tick_sample=False)
     mpc = MPPI(env, MPPIConfig(horizon=2, num_samples=2))
     assert mpc.spec is None
-    monkeypatch.setattr(tphys, "control_step", _fail)
+    monkeypatch.setattr(tfused, "fused_control_step", _fail)
     gen = torch.Generator().manual_seed(0)
     state, _ = env.reset_all(gen)
     state, obs, rew, dones, _ = env.step(state, torch.zeros(2, env.num_actions))
@@ -267,16 +268,78 @@ def test_env_and_mppi_under_the_opt_out_carry_no_spec(monkeypatch):
     assert task_registry.make_env("go2", env_cfg=cfg2, device="cpu")[0].fused_spec.hf_K == 0
 
 
-def test_receipt_eager_step_is_the_opt_out_step():
+class _SaysCuda(torch.Tensor):
+    """A CPU tensor whose `is_cuda` reads True, so that the engine's rule can
+    be driven down its card branch here; its ops give plain tensors."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+class _Reached(Exception):
+    pass
+
+
+def _reached(*args, **kwargs):
+    raise _Reached
+
+
+@pytest.mark.parametrize("task", ["go2", "go2_parkour"])
+def test_kernel_spec_is_the_one_choice(task, monkeypatch):
+    """`physics.kernel_spec` builds the env's `fused_spec` and an MPPI's spec
+    over that env: the three are equal, and all None under
+    `LGC_FUSED_KERNEL=0` and under `sim.fused_kernel = False`.  On tensors
+    that say they are on CUDA, `control_step` given no spec never reaches
+    the kernel's wrapper, and given the env's spec reaches it."""
+    from legged_gym_custom_tpu_torch.mpc import MPPI, MPPIConfig
+
+    def build(fused_kernel=True):
+        cfg, _ = task_registry.get_cfgs(task)
+        cfg.env.num_envs = 2
+        cfg.sim.fused_kernel = fused_kernel
+        env = task_registry.make_env(task, env_cfg=cfg, device="cpu")[0]
+        mpc = MPPI(env, MPPIConfig(horizon=2, num_samples=2))
+        built = tphys.kernel_spec(env.ma, env.hf, env.sim_params, env.pd, env.dof_limits,
+                                  enabled=fused_kernel)
+        return env, (env.fused_spec, mpc.spec, built)
+
+    monkeypatch.delenv("LGC_FUSED_KERNEL", raising=False)
+    env, (spec, *others) = build()
+    assert spec is not None and others == [spec, spec]
+    assert (spec.hf_K > 0) == (task == "go2_parkour")
+    assert build(fused_kernel=False)[1] == (None, None, None)
+    monkeypatch.setenv("LGC_FUSED_KERNEL", "0")
+    assert build()[1] == (None, None, None)
+
+    st = env.reset_all(torch.Generator().manual_seed(3))[0]
+    cb = lambda x: x.movedim(0, -1).contiguous()
+    physics = tphys.PhysicsState(*map(cb, st.physics))
+    physics = physics._replace(dof_pos=physics.dof_pos.as_subclass(_SaysCuda))
+    assert physics.dof_pos.is_cuda
+    args = (env.ma, env.hf, env.sim_params, env.pd, tphys.DomainRandParams(*map(cb, st.dr)),
+            env.dof_limits, physics, torch.zeros(env.num_actions, env.num_envs))
+    monkeypatch.setattr(tfused, "fused_control_step", _fail)
+    out, info = tphys.control_step(*args, spec=None)
+    assert all(bool(torch.isfinite(x).all()) for x in (*out, *info))
+    monkeypatch.setattr(tfused, "fused_control_step", _reached)
+    with pytest.raises(_Reached):
+        tphys.control_step(*args, spec=spec)
+
+
+def test_receipt_eager_step_is_the_opt_out_step(monkeypatch):
     """`check_fused_gpu.eager_step`, the receipt's eager side: the eager
     engine's step on the receipt's plant, as an env with the kernel off
-    steps it."""
+    steps it, never reaching the kernel's wrapper."""
     from legged_gym_custom_tpu_torch.scripts import check_fused_gpu
 
     p = check_fused_gpu.build(8, terrain=True, full_plant=True, device="cpu")
+    monkeypatch.setattr(tfused, "fused_control_step", _fail)
     st, out = check_fused_gpu.eager_step(p, p.state, p.actions)
-    st_e, info_e = tphys.eager_control_step(p.ma, p.hf, p.params, p.pd, p.dr, p.dof_limits,
-                                            p.state, p.actions)
+    st_e, info_e = tphys.control_step(p.ma, p.hf, p.params, p.pd, p.dr, p.dof_limits,
+                                      p.state, p.actions, spec=None)
     for a, b in zip((*st, out.link_forces, out.torques),
                     (*st_e, info_e.link_forces, info_e.torques)):
         assert torch.equal(a, b)

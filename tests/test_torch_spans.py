@@ -138,14 +138,17 @@ def _pd_torques(actions, q, qd, state):
     return -2.0 * qd, state
 
 
-@pytest.mark.parametrize("entry", ["control_step", "eager_control_step",
-                                   "actuated_control_step", "eager_actuated_control_step"])
-def test_each_engine_entry_point_records_one_physics_span(go2, entry):
-    args = _engine_args(go2["env"])
+@pytest.mark.parametrize("with_spec", [True, False], ids=["spec", "no_spec"])
+@pytest.mark.parametrize("entry", ["control_step", "actuated_control_step"])
+def test_each_engine_entry_point_records_one_physics_span(go2, entry, with_spec):
+    env = go2["env"]
+    args = _engine_args(env)
+    spec = env.fused_spec if with_spec else None
+    assert with_spec == (spec is not None)
     fn = getattr(phys, entry)
-    call = lambda: fn(*args)
+    call = lambda: fn(*args, spec=spec)
     if "actuated" in entry:
-        call = lambda: fn(*args, torch.zeros(args[-1].shape[-1]), _pd_torques)
+        call = lambda: fn(*args, torch.zeros(args[-1].shape[-1]), _pd_torques, spec=spec)
     assert len(_spans(_events(call), "lgc.physics")) == 1
 
 
